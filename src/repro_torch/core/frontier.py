@@ -1,0 +1,198 @@
+"""The frontier engine: the one level-synchronous BFS relay that every phase
+of QbS runs on.  Counterpart of ``repro.core.frontier``.
+
+Every phase (offline labelling, the sketch-bounded bidirectional search,
+the reverse and recover sweeps, the one-sided landmark BFS) is the same
+operation: propagate per-edge boolean messages into their destinations,
+
+    next[k, w] = OR_{e : dst[e] = w}  values[k, src[e]] & mask[e]
+
+Backends:
+
+* ``segment`` — the edge-list push relay: gather by ``src``, then an int
+  ``scatter_reduce(..., "amax")`` into a zeroed accumulator keyed by
+  ``dst`` (``segment_or``).  Default.
+* ``hybrid``  — degree split: the dense hub-hub block runs through
+  ``kernels.ops.bitmap_expand_packed`` over bit-packed words (the
+  hand-written CUDA kernel on the card, which the reference reaches with
+  ``use_pallas=True``; its plain version on the CPU), the sparse tail
+  keeps ``segment_or`` over a compacted tail edge list; the two are ORed.
+
+The static G- edge mask is baked in at build time (``make_relay``).  The
+reference's ``csr`` backend is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from .graph import INF, Graph
+from .packing import pack_bits
+
+BACKENDS = ("segment", "hybrid")
+
+
+def segment_or(messages: torch.Tensor, segment_ids: torch.Tensor,
+               num_segments: int) -> torch.Tensor:
+    """OR-reduce per-edge boolean messages ``(K, E)`` into ``(K, N)``: an int
+    ``amax`` scatter into a zero-initialised accumulator, then ``> 0``, so
+    an empty segment comes out False (the reference's ``segment_max`` fills
+    it with the dtype minimum)."""
+    k = messages.shape[0]
+    acc = torch.zeros((k, num_segments), dtype=torch.int32,
+                      device=messages.device)
+    idx = segment_ids.to(torch.int64).expand(k, -1)
+    acc.scatter_reduce_(1, idx, messages.to(torch.int32), "amax")
+    return acc > 0
+
+
+class FrontierEngine:
+    """Per-graph relay engine over device tensors in ``arrays``."""
+
+    def __init__(self, arrays: dict[str, Any], *, backend: str,
+                 n_vertices: int, n_edges: int):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+        self.arrays = arrays
+        self.backend = backend
+        self.n_vertices = n_vertices
+        self.n_edges = n_edges
+
+    def relay(self, values: torch.Tensor) -> torch.Tensor:
+        """``(K, V) -> (K, V)`` (or ``(V,) -> (V,)``) with the build-time edge
+        mask applied: next[k, w] = OR over unmasked edges (x, w) of
+        values[k, x]."""
+        squeeze = values.ndim == 1
+        f = values[None] if squeeze else values
+        if self.backend == "segment":
+            out = self._relay_segment(f)
+        else:
+            out = self._relay_hybrid(f)
+        return out[0] if squeeze else out
+
+    def _relay_segment(self, f: torch.Tensor) -> torch.Tensor:
+        msgs = f[:, self.arrays["src"]]
+        mask = self.arrays.get("mask")
+        if mask is not None:
+            msgs = msgs & mask
+        return segment_or(msgs, self.arrays["dst"], self.n_vertices)
+
+    def _relay_hybrid(self, f: torch.Tensor) -> torch.Tensor:
+        hub_ids = self.arrays["hub_ids"]
+        h = hub_ids.shape[0]
+        tail_src = self.arrays.get("tail_src")
+        if tail_src is not None:
+            out = segment_or(f[:, tail_src], self.arrays["tail_dst"],
+                             self.n_vertices)
+        else:
+            out = torch.zeros((f.shape[0], self.n_vertices), dtype=torch.bool,
+                              device=f.device)
+        next_h = ops.bitmap_expand_packed(f[:, hub_ids],
+                                          self.arrays["adj_hh_words"], n_cols=h)
+        out[:, hub_ids] |= next_h
+        return out
+
+
+def bfs_depths_batch(engine: FrontierEngine, roots: torch.Tensor,
+                     max_levels: int,
+                     bounds: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched level-synchronous BFS: ``(B,)`` roots -> ``(B, V)`` int32
+    depths, ``INF`` = unreached.  One relay per level serves every row.
+    ``bounds`` ``(B,)`` truncates each row at its own depth: row k expands
+    only while ``level < bounds[k]``.  A row that stops is frozen while the
+    others go on, as under the reference's ``while_loop``."""
+    b = roots.shape[0]
+    dev = roots.device
+    rows = torch.arange(b, device=dev)
+    depth = torch.full((b, engine.n_vertices), INF, dtype=torch.int32, device=dev)
+    depth[rows, roots.to(torch.int64)] = 0
+    alive = torch.ones((b,), dtype=torch.bool, device=dev)
+    level = 0
+    while level < max_levels:
+        act = alive if bounds is None else alive & (level < bounds)
+        if not bool(act.any()):
+            break
+        msg = engine.relay((depth == level) & act[:, None])
+        new = msg & (depth == INF)
+        alive = torch.where(act, new.any(dim=1), alive)
+        depth = torch.where(new, level + 1, depth)
+        level += 1
+    return depth
+
+
+class HubSplit(NamedTuple):
+    """Host-side degree split (see ``Graph.hub_split``)."""
+
+    hub_ids: np.ndarray    # (H,) int32, ascending vertex ids
+    is_hub: np.ndarray     # (V,) bool
+    hub_pos: np.ndarray    # (V,) int64 vertex -> hub-block row, -1 otherwise
+    adj_hh: np.ndarray     # (H, H) bool dense hub-hub adjacency
+    hub_edge: np.ndarray   # (E,) bool: both endpoints are hubs (excl. loops)
+
+
+def hub_split(graph: Graph, n_hubs: int | None = None) -> HubSplit:
+    """The top-``n_hubs`` vertices by degree (self-loop padding excluded)
+    form the dense hub block; host numpy, as in the reference."""
+    src = graph.src.cpu().numpy()
+    dst = graph.dst.cpu().numpy()
+    v = graph.n_vertices
+    real = src != dst
+    deg = np.bincount(src[real], minlength=v)
+    h = max(min(v, 128 if n_hubs is None else n_hubs), 1)
+    order = np.argsort(-deg, kind="stable")
+    hub_ids = np.sort(order[:h]).astype(np.int32)
+    is_hub = np.zeros((v,), bool)
+    is_hub[hub_ids] = True
+    hub_pos = np.full((v,), -1, np.int64)
+    hub_pos[hub_ids] = np.arange(h)
+    hub_edge = real & is_hub[src] & is_hub[dst]
+    adj = np.zeros((h, h), bool)
+    adj[hub_pos[src[hub_edge]], hub_pos[dst[hub_edge]]] = True
+    return HubSplit(hub_ids, is_hub, hub_pos, adj, hub_edge)
+
+
+def make_relay(graph: Graph, *, backend: str = "segment",
+               edge_mask: torch.Tensor | np.ndarray | None = None,
+               n_hubs: int | None = None) -> FrontierEngine:
+    """Build a ``FrontierEngine`` on the graph's device.
+
+    ``edge_mask`` is a static per-edge boolean (the G- mask); it must be
+    symmetric, which any mask of the form ``f[src] & f[dst]`` is.  ``hybrid``
+    also needs the edge set symmetric, which ``from_edges`` guarantees.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS} "
+                         f"(the csr backend is not ported yet)")
+    v, e = graph.n_vertices, graph.n_edges
+    dev = graph.device
+    arrays: dict[str, Any] = {"src": graph.src, "dst": graph.dst}
+    if isinstance(edge_mask, torch.Tensor):
+        edge_mask = edge_mask.cpu().numpy()
+    mask_np = None if edge_mask is None else np.asarray(edge_mask).astype(bool)
+
+    if backend == "segment":
+        if mask_np is not None:
+            arrays["mask"] = torch.from_numpy(mask_np).to(dev)
+        return FrontierEngine(arrays, backend=backend, n_vertices=v, n_edges=e)
+
+    # hybrid: degree split, dense hub block (mask baked in), compacted tail
+    src_np = graph.src.cpu().numpy()
+    dst_np = graph.dst.cpu().numpy()
+    split = hub_split(graph, n_hubs)
+    adj = split.adj_hh.copy()
+    keep_tail = ~split.hub_edge
+    if mask_np is not None:
+        dead = split.hub_edge & ~mask_np
+        adj[split.hub_pos[src_np[dead]], split.hub_pos[dst_np[dead]]] = False
+        keep_tail = keep_tail & mask_np
+    arrays["hub_ids"] = torch.from_numpy(split.hub_ids).to(dev)
+    # the hub-hub block lives bit-packed (int32 words); the kernel reads it
+    # as is and the plain version unpacks it per call
+    arrays["adj_hh_words"] = pack_bits(torch.from_numpy(adj)).to(dev)
+    if keep_tail.any():
+        arrays["tail_src"] = torch.from_numpy(src_np[keep_tail]).to(dev)
+        arrays["tail_dst"] = torch.from_numpy(dst_np[keep_tail]).to(dev)
+    return FrontierEngine(arrays, backend=backend, n_vertices=v, n_edges=e)

@@ -1,0 +1,64 @@
+"""The kernel dispatch seam.  Counterpart of ``repro.kernels.ops``.
+
+The device of the tensors decides, and there is no ``use_pallas`` switch:
+
+* a CUDA tensor launches the hand-written kernel (``minplus.minplus_cuda``,
+  ``frontier.bitmap_expand_packed_cuda``) or raises: no ``try`` that falls
+  back, no path that goes on running on the CPU;
+* a CPU tensor takes the kernel's plain PyTorch version (``ref``).
+
+That is the reference's ``use_pallas=True`` on a TPU (kernel) and its
+plain ``jnp`` path elsewhere.  ``LAUNCHES`` counts kernel launches per
+kernel; the plain versions never move it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from ._build import LAUNCHES
+from .frontier import bitmap_expand_packed_cuda, check_expand_args
+from .minplus import check_minplus_args, minplus_cuda
+
+__all__ = ["LAUNCHES", "bitmap_expand_packed", "minplus", "reset_launches",
+           "sketch_d_top"]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
+    if all(t.is_cuda for t in tensors):
+        return True
+    raise ValueError(f"tensors on mixed or unsupported devices: "
+                     f"{[str(t.device) for t in tensors]}")
+
+
+def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Tropical product C = A (min, +) B: (M, K) x (K, N) -> (M, N)."""
+    if _on_cuda(a, b):
+        return minplus_cuda(a, b)
+    check_minplus_args(a, b)
+    return ref.minplus_ref(a, b)
+
+
+def bitmap_expand_packed(frontier: torch.Tensor, adj_words: torch.Tensor, *,
+                         n_cols: int) -> torch.Tensor:
+    """One frontier expansion over a bit-packed adjacency block:
+    (K, V) bool x (V, ceil(n_cols / 32)) int32 words -> (K, n_cols) bool."""
+    if _on_cuda(frontier, adj_words):
+        return bitmap_expand_packed_cuda(frontier, adj_words, n_cols)
+    check_expand_args(frontier, adj_words, n_cols)
+    return ref.bitmap_expand_packed_ref(frontier, adj_words, n_cols)
+
+
+def sketch_d_top(lu: torch.Tensor, lv: torch.Tensor,
+                 meta_dist: torch.Tensor) -> torch.Tensor:
+    """d_top for a query batch: min_r (minplus(lu, meta_dist) + lv), on
+    int32 rows (widen packed tables first)."""
+    t = minplus(lu, meta_dist)          # (B, R)
+    return (t + lv).amin(dim=1)
