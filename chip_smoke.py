@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, drive the main path
-(``QbSIndex.build`` -> ``query_batch``) at full size, check the answers.
+(``QbSIndex.build`` -> ``query_batch``) at full size on every relay backend,
+the dense expansion's path, the baselines and the serving CLI, and check
+the answers.
 
     python3 chip_smoke.py                      # 1.1 M-vertex BA graph, R = 20
     python3 chip_smoke.py --n-vertices 100000  # a quicker rehearsal
@@ -13,12 +15,25 @@ Phases (each raises on failure; nothing is caught):
    with kernel / plain / library-call times (median of 30 timed runs);
 4. the main path: ``barabasi_albert_graph(1_100_000, 3, seed=0)``,
    ``QbSIndex.build(backend="hybrid")`` and ``query_batch`` on every lane,
-   then the same with ``backend="segment"``, which must give the same tables
-   and answers; the launch counters are set to 0 just before each backend's
-   run and read just after (hybrid must launch both kernels, segment
-   ``minplus`` and no ``bitmap_expand_packed``);
-   8 sampled answers against a scipy BFS oracle;
-5. the kernels' JSON line, then the device line last.
+   then the same with ``backend="segment"`` and with ``backend="csr"``
+   (``block_size = 1 << 21``, so the blocked loop runs), which must give
+   the same tables and answers; the launch counters are set to 0 just
+   before each backend's run and read just after (hybrid must launch
+   ``minplus`` and ``bitmap_expand_packed``, segment and csr ``minplus``
+   only, none of them ``bitmap_expand``);
+5. the dense expansion's path: ``kernels.ops.bitmap_expand`` on the hybrid
+   index's real hub block (unpacked) and the landmarks' level-1 and
+   level-2 frontier rows, as the oracle of ``bitmap_expand_packed``; it
+   must launch ``bitmap_expand`` and nothing else;
+6. 8 sampled answers against a scipy BFS oracle; the baselines on the
+   card: Bi-BFS on 32 general pairs and the two-BFS oracle on 2 pairs of
+   the 1.1 M-vertex graph must give the QbS answers, and PPL (with and
+   without parents; host numpy with a dense (V, V) table, which is why the
+   paper shows it does not scale, so it runs on a 1,000-vertex graph) must
+   agree with a QbS index of the same graph;
+7. the serving CLI (``repro_torch.launch.serve.main``) in process, at
+   ``--n 20000`` on the ``ba`` and ``cliques`` graphs;
+8. the kernels' JSON line, then the device line last.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero without
 a CUDA device.
@@ -38,15 +53,17 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core peak (float32 rate)
+INT8_TC_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -113,7 +130,7 @@ def check_kernels(dev, ref, INF):
     """Phase 3: every kernel against its plain version on the card, exact
     equality; the kernels' JSON rows at the main path's shapes."""
     from repro_torch.core.packing import pack_bits, unpack_bits
-    from repro_torch.kernels.frontier import bitmap_expand_packed_cuda
+    from repro_torch.kernels.frontier import bitmap_expand_cuda, bitmap_expand_packed_cuda
     from repro_torch.kernels.minplus import minplus_cuda
 
     rng = np.random.default_rng(0)
@@ -175,6 +192,50 @@ def check_kernels(dev, ref, INF):
                 max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=t["torch.matmul on unpacked f32"])
+
+    # the dense expansion: the reference's test shapes, the roofline shape,
+    # the dense-oracle path's shape (40 frontier rows x 128 hubs), an
+    # all-False frontier and a ragged W != V block; bound at the int8
+    # tensor-core rate (the OR-AND is an exact int8 product)
+    dense_cases = [((1, 1, 1), 0.1), ((20, 100, 100), 0.1), ((20, 257, 257), 0.1),
+                   ((64, 512, 512), 0.1), ((64, 2048, 2048), 0.1),
+                   ((40, 128, 128), 0.1), ((64, 512, 512), 0.0),
+                   ((33, 1000, 77), 0.1)]
+    for (r, v, w), f_density in dense_cases:
+        f = torch.as_tensor(rng.random((r, v)) < f_density, device=dev)
+        adj = rng.random((v, w)) < 0.05
+        if v == w:
+            adj = np.triu(adj, 1)
+            adj = adj | adj.T
+        adj = torch.as_tensor(adj, device=dev)
+        got = bitmap_expand_cuda(f, adj)
+        want = ref.bitmap_expand_ref(f, adj)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if err != 0:
+            raise AssertionError(f"bitmap_expand ({r},{v})x({v},{w}): "
+                                 f"max |kernel - plain| = {err}")
+        if f_density == 0.0 and bool(got.any()):
+            raise AssertionError("bitmap_expand: all-False frontier expanded")
+        ff = f.to(torch.float32)
+        aa = adj.to(torch.float32)
+        what = "all-False frontier " if f_density == 0.0 else ""
+        t = measure(f"bitmap_expand {what}({r},{v})x({v},{w}), "
+                    f"{int(got.sum())} of {got.numel()} true", {
+                        "kernel": lambda: bitmap_expand_cuda(f, adj),
+                        "plain": lambda: ref.bitmap_expand_ref(f, adj),
+                        "torch.matmul on f32": lambda: torch.matmul(ff, aa)})
+        n_bytes = r * v + v * w + r * w
+        b_ms, b_by = bound_ms(n_bytes, 2 * r * v * w, INT8_TC_OPS_PER_S)
+        log(f"  bound {b_ms * 1e3:.4f} us by {b_by} ({n_bytes} bytes)")
+        if (r, v, w) == (40, 128, 128):      # the dense-oracle path's shape
+            rows["bitmap_expand"] = dict(
+                name="bitmap_expand", route="cuda",
+                source="src/repro_torch/kernels/csrc/bitmap_expand.cu",
+                replaces="src/repro/kernels/frontier.py:79",
+                max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=t["torch.matmul on f32"])
     return rows
 
 
@@ -214,12 +275,16 @@ def bfs_oracle(graph, pairs, INF):
     return out
 
 
-def run_backend(core, ops, g, backend, us, vs, n_landmarks, chunk):
-    """The main path once: build an index, answer the whole batch."""
+def run_backend(core, ops, g, backend, us, vs, n_landmarks, chunk,
+                engine_opts=None):
+    """The main path once: build an index, answer the whole batch.  The
+    peak-memory figure counts from this backend's start, with the indexes
+    of the earlier backends still alive."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     idx = core.QbSIndex.build(g, n_landmarks=n_landmarks, backend=backend,
-                              chunk=chunk)
+                              chunk=chunk, engine_opts=engine_opts)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     log(f"[{backend}] build {t_build:.2f} s; packed tables "
@@ -260,6 +325,7 @@ def breakdown(core, idx, us, vs):
     in a synchronize), then a torch.profiler trace of one ``serve_step`` for
     the device's busy share and the top kernels by device time."""
     from repro_torch.core import search, sketch
+    from repro_torch.core.packing import take
     from repro_torch.core.qbs import _symmetrize
 
     us_t = torch.as_tensor(us, dtype=torch.int32, device=idx.device)
@@ -279,7 +345,7 @@ def breakdown(core, idx, us, vs):
     t_all = time.perf_counter()
     ctx, V = idx.ctx, idx.graph.n_vertices
     sk = stage("sketch", lambda: sketch.compute_sketch_batch(
-        idx.packed.label_dist[us_t.long()], idx.packed.label_dist[vs_t.long()],
+        take(idx.packed.label_dist, us_t.long()), take(idx.packed.label_dist, vs_t.long()),
         idx.packed.meta_w, idx.packed.meta_dist))
     q = search.Query(u=us_t, v=vs_t, d_top=sk.d_top, du_land=sk.du_land,
                      dv_land=sk.dv_land, meta_edge=sk.meta_edge,
@@ -321,6 +387,94 @@ def breakdown(core, idx, us, vs):
         f"busy {dev_total / 1e3:.1f} ms ({dev_total / 1e4 / wall:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -_device_us(e))[:8]:
         log(f"    {_device_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
+def same_as_hybrid(idx_h, res_h, idx_b, res_b, backend):
+    """Another backend's tables and answers against hybrid's, exactly."""
+    for f in ("label_dist", "meta_w", "meta_dist", "lid", "is_landmark"):
+        if not torch.equal(getattr(idx_h.scheme, f), getattr(idx_b.scheme, f)):
+            raise AssertionError(f"{backend} and hybrid disagree on scheme.{f}")
+    if not all(torch.equal(a, b) for a, b in zip(idx_h.packed, idx_b.packed)):
+        raise AssertionError(f"{backend} and hybrid disagree on the packed tables")
+    if len(res_b) != len(res_h):
+        raise AssertionError("query_batch returned the wrong number of answers")
+    for a, b in zip(res_h, res_b):
+        if a.dist != b.dist or not np.array_equal(a.edge_ids, b.edge_ids):
+            raise AssertionError(f"{backend} and hybrid disagree on query "
+                                 f"({a.u}, {a.v})")
+    log(f"hybrid == {backend} on tables and on all {len(res_h)} answers")
+
+
+def dense_oracle(core, ops, ref, idx_h):
+    """The dense expansion's path: ``ops.bitmap_expand`` over the hybrid
+    index's hub block, unpacked, on the landmarks' level-1 and level-2
+    frontier rows (hub columns), as the oracle of ``bitmap_expand_packed``.
+    The packed kernel runs first, outside the counted window; the counters
+    are set to 0 just before the dense call and read just after."""
+    eng = idx_h.ctx.engine
+    hub_ids = eng.arrays["hub_ids"].to(torch.int64)
+    words = eng.arrays["adj_hh_words"]
+    h = hub_ids.numel()
+    adj = core.unpack_bits(words, h).contiguous()
+    lm = core.widen_dist(idx_h.packed.lm_dist)                  # (R, V)
+    rows = torch.cat([lm == 1, lm == 2])[:, hub_ids].contiguous()
+    want = ops.bitmap_expand_packed(rows, words, n_cols=h)
+    plain = ref.bitmap_expand_ref(rows, adj)
+    ops.reset_launches()
+    got = ops.bitmap_expand(rows, adj)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    if not (torch.equal(got, want) and torch.equal(got, plain)):
+        raise AssertionError("bitmap_expand disagrees with bitmap_expand_packed "
+                             "on the hub block")
+    log(f"dense oracle: bitmap_expand == bitmap_expand_packed == plain on "
+        f"({rows.shape[0]},{h})x({h},{h}) hub rows ({int(rows.sum())} frontier "
+        f"bits, {int(adj.sum())} hub edges, {int(got.sum())} next bits); "
+        f"launches {counts}")
+    return counts
+
+
+def baselines(core, g, us, vs, general, res_h, oracle_pairs):
+    """Bi-BFS and the two-BFS oracle on the card against the QbS answers;
+    PPL against a QbS index of a 1,000-vertex graph."""
+    from repro_torch.core import baselines as bl
+
+    t0 = time.perf_counter()
+    bi = bl.bibfs_spg_batch(g, us[general], vs[general])
+    for i, b in zip(general, bi):
+        q = res_h[i]
+        if b.dist != q.dist or not np.array_equal(b.edge_ids, q.edge_ids.astype(np.int64)):
+            raise AssertionError(f"Bi-BFS disagrees with QbS on ({q.u}, {q.v})")
+    log(f"[baselines] bibfs_spg_batch == QbS on {len(bi)} general pairs "
+        f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    for u, v, d, eids in oracle_pairs:
+        o = bl.bfs_spg(g, u, v)
+        if o.dist != d or not np.array_equal(o.edge_ids, eids):
+            raise AssertionError(f"bfs_spg disagrees with scipy on ({u}, {v})")
+    log(f"[baselines] bfs_spg == scipy oracle on {len(oracle_pairs)} pairs "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # PPL keeps a dense (V, V) host table: the paper's point is that this
+    # family does not scale, so it runs at 1,000 vertices only
+    g1 = core.barabasi_albert_graph(1000, 3, seed=0)
+    idx1 = core.QbSIndex.build(g1, n_landmarks=20, backend="hybrid")
+    rng = np.random.default_rng(2)
+    pu = rng.integers(0, 1000, size=64).astype(np.int32)
+    pv = rng.integers(0, 1000, size=64).astype(np.int32)
+    res = idx1.query_batch(pu, pv)
+    for parents in (False, True):
+        t0 = time.perf_counter()
+        ppl = bl.PPLIndex(g1, store_parents=parents)
+        t_build = time.perf_counter() - t0
+        for r in res:
+            p = ppl.query(r.u, r.v)
+            if p.dist != r.dist or not np.array_equal(p.edge_ids, r.edge_ids):
+                raise AssertionError(f"PPL (parents={parents}) disagrees with "
+                                     f"QbS on ({r.u}, {r.v})")
+        log(f"[baselines] PPLIndex(store_parents={parents}) == QbS on "
+            f"{len(res)} pairs of BA(1000, 3): {ppl.label_entries()} label "
+            f"entries, {ppl.memory_bytes()} bytes, built in {t_build:.2f} s")
 
 
 def main() -> int:
@@ -388,7 +542,7 @@ def main() -> int:
     log("queries: " + ", ".join(f"{k} {v.size}" for k, v in lanes.items()))
 
     # each path once, with the launch counters set to 0 just before it and
-    # read just after: hybrid runs both kernels, segment only minplus
+    # read just after
     ops.reset_launches()
     idx_h, res_h = run_backend(core, ops, g, "hybrid", us, vs, n_landmarks, chunk)
     launches = {"hybrid": dict(ops.LAUNCHES)}
@@ -399,7 +553,23 @@ def main() -> int:
     idx_s, res_s = run_backend(core, ops, g, "segment", us, vs, n_landmarks, chunk)
     launches["segment"] = dict(ops.LAUNCHES)
     log(f"launches on the segment path (build + query_batch): {launches['segment']}")
-    expect = {"hybrid": ("minplus", "bitmap_expand_packed"), "segment": ("minplus",)}
+    same_as_hybrid(idx_h, res_h, idx_s, res_s, "segment")
+    time_lanes(idx_s, ops, us, vs, lanes, chunk)
+
+    ops.reset_launches()
+    idx_c, res_c = run_backend(core, ops, g, "csr", us, vs, n_landmarks, chunk,
+                               engine_opts={"block_size": 1 << 21})
+    launches["csr"] = dict(ops.LAUNCHES)
+    log(f"launches on the csr path (build + query_batch): {launches['csr']}")
+    log(f"[csr] {idx_c.ctx.engine.arrays['csr_bounds'].shape[0]} blocks of "
+        f"{idx_c.ctx.engine.block_size} edge slots per relay")
+    same_as_hybrid(idx_h, res_h, idx_c, res_c, "csr")
+    time_lanes(idx_c, ops, us, vs, lanes, chunk)
+
+    launches["dense_oracle"] = dense_oracle(core, ops, ref, idx_h)
+    expect = {"hybrid": ("minplus", "bitmap_expand_packed"),
+              "segment": ("minplus",), "csr": ("minplus",),
+              "dense_oracle": ("bitmap_expand",)}
     for path, names in expect.items():
         for name, count in launches[path].items():
             if name in names and count <= 0:
@@ -407,21 +577,9 @@ def main() -> int:
             if name not in names and count != 0:
                 raise AssertionError(f"kernel {name} was launched {count} times "
                                      f"on the {path} path")
-    for f in ("label_dist", "meta_w", "meta_dist", "lid", "is_landmark"):
-        if not torch.equal(getattr(idx_h.scheme, f), getattr(idx_s.scheme, f)):
-            raise AssertionError(f"backends disagree on scheme.{f}")
-    if not all(torch.equal(a, b) for a, b in zip(idx_h.packed, idx_s.packed)):
-        raise AssertionError("backends disagree on the packed tables")
-    if len(res_h) != n or len(res_s) != n:
-        raise AssertionError("query_batch returned the wrong number of answers")
-    for a, b in zip(res_h, res_s):
-        if a.dist != b.dist or not np.array_equal(a.edge_ids, b.edge_ids):
-            raise AssertionError(f"backends disagree on query ({a.u}, {a.v})")
-    log(f"hybrid == segment on tables and on all {n} answers")
-    time_lanes(idx_s, ops, us, vs, lanes, chunk)
     if args.breakdown:
         first = lanes["general"][:chunk]
-        for idx in (idx_h, idx_s):
+        for idx in (idx_h, idx_s, idx_c):
             breakdown(core, idx, us[first], vs[first])
 
     sample = np.concatenate([rng.choice(lanes["general"], size=5, replace=False),
@@ -437,18 +595,32 @@ def main() -> int:
     log(f"scipy BFS oracle agrees on {sample.size} queries "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # phase 5: results
+    # phase 6: the baselines on the card (and PPL on the host)
+    baselines(core, g, us, vs, lanes["general"][:chunk], res_h,
+              [(int(us[i]), int(vs[i]), d, eids) for i, (d, eids)
+               in zip(sample[:2], want[:2])])
+
+    # phase 7: the serving CLI, in process, on the card
+    from repro_torch.launch import serve
+    for graph, backend in (("ba", "hybrid"), ("cliques", "csr")):
+        t0 = time.perf_counter()
+        serve.main(["--graph", graph, "--n", "20000", "--landmarks", "20",
+                    "--queries", "200", "--backend", backend])
+        log(f"[cli] {graph} on {backend}: {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: results
     kernels = []
-    for name in ("minplus", "bitmap_expand_packed"):
+    for name, main_path in (("minplus", "hybrid"),
+                            ("bitmap_expand_packed", "hybrid"),
+                            ("bitmap_expand", "dense_oracle")):
         row = rows[name]
-        kernels.append({**row, "launches": launches["hybrid"][name],
+        kernels.append({**row, "launches": launches[main_path][name],
                         "launches_by_path": {p: c[name] for p, c in launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -12,14 +12,21 @@ Backends:
 * ``segment`` — the edge-list push relay: gather by ``src``, then an int
   ``scatter_reduce(..., "amax")`` into a zeroed accumulator keyed by
   ``dst`` (``segment_or``).  Default.
+* ``csr``     — the pull relay over the src-sorted (CSR-row) layout:
+  ``next[w] = OR_{e in row w} values[dst[e]]``, valid because the edge set
+  and any baked mask are symmetric.  The key (``src``) is sorted, so each
+  row is a contiguous run of edges and the OR is a count over the run: an
+  int32 prefix sum of the messages read at the row boundaries (count > 0),
+  with no atomics (``csr_or``).  ``block_size`` cuts the edge list into
+  fixed blocks (padded with key = V, gather = 0) to bound the ``(K, E)``
+  message temporary; the blocks OR into a ``(K, V + 1)`` accumulator.
 * ``hybrid``  — degree split: the dense hub-hub block runs through
   ``kernels.ops.bitmap_expand_packed`` over bit-packed words (the
   hand-written CUDA kernel on the card, which the reference reaches with
   ``use_pallas=True``; its plain version on the CPU), the sparse tail
   keeps ``segment_or`` over a compacted tail edge list; the two are ORed.
 
-The static G- edge mask is baked in at build time (``make_relay``).  The
-reference's ``csr`` backend is not ported yet.
+The static G- edge mask is baked in at build time (``make_relay``).
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from ..kernels import ops
 from .graph import INF, Graph
 from .packing import pack_bits
 
-BACKENDS = ("segment", "hybrid")
+BACKENDS = ("segment", "csr", "hybrid")
 
 
 def segment_or(messages: torch.Tensor, segment_ids: torch.Tensor,
@@ -49,17 +56,31 @@ def segment_or(messages: torch.Tensor, segment_ids: torch.Tensor,
     return acc > 0
 
 
+def csr_or(messages: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """OR-reduce per-edge boolean messages ``(K, B)`` whose segment key is
+    sorted into ``(K, N)``: ``bounds`` ``(N + 1,)`` holds each segment's
+    first edge (and B last).  A zero-led int32 prefix sum of the messages,
+    read at the boundaries, counts each segment's true messages; an empty
+    segment counts 0 and comes out False.  No atomics: the key is sorted."""
+    k, b = messages.shape
+    cs = torch.zeros((k, b + 1), dtype=torch.int32, device=messages.device)
+    cs[:, 1:] = messages
+    cs.cumsum_(dim=1)
+    return (cs[:, bounds[1:]] - cs[:, bounds[:-1]]) > 0
+
+
 class FrontierEngine:
     """Per-graph relay engine over device tensors in ``arrays``."""
 
     def __init__(self, arrays: dict[str, Any], *, backend: str,
-                 n_vertices: int, n_edges: int):
+                 n_vertices: int, n_edges: int, block_size: int = 0):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
         self.arrays = arrays
         self.backend = backend
         self.n_vertices = n_vertices
         self.n_edges = n_edges
+        self.block_size = block_size
 
     def relay(self, values: torch.Tensor) -> torch.Tensor:
         """``(K, V) -> (K, V)`` (or ``(V,) -> (V,)``) with the build-time edge
@@ -69,6 +90,8 @@ class FrontierEngine:
         f = values[None] if squeeze else values
         if self.backend == "segment":
             out = self._relay_segment(f)
+        elif self.backend == "csr":
+            out = self._relay_csr(f)
         else:
             out = self._relay_hybrid(f)
         return out[0] if squeeze else out
@@ -79,6 +102,23 @@ class FrontierEngine:
         if mask is not None:
             msgs = msgs & mask
         return segment_or(msgs, self.arrays["dst"], self.n_vertices)
+
+    def _relay_csr(self, f: torch.Tensor) -> torch.Tensor:
+        # pull over the src-sorted rows: by edge-set and mask symmetry, OR
+        # over out-neighbours == OR over in-neighbours
+        gather = self.arrays["csr_gather"]    # dst column, padded to blocks
+        mask = self.arrays.get("csr_mask")
+        bounds = self.arrays["csr_bounds"]    # (n_blocks, V + 2) row starts
+        v = self.n_vertices
+        b = self.block_size or gather.shape[0]
+        acc = torch.zeros((f.shape[0], v + 1), dtype=torch.bool, device=f.device)
+        for i in range(bounds.shape[0]):
+            sl = slice(i * b, (i + 1) * b)
+            msgs = f[:, gather[sl]]
+            if mask is not None:
+                msgs = msgs & mask[sl]
+            acc |= csr_or(msgs, bounds[i])
+        return acc[:, :v]
 
     def _relay_hybrid(self, f: torch.Tensor) -> torch.Tensor:
         hub_ids = self.arrays["hub_ids"]
@@ -94,6 +134,19 @@ class FrontierEngine:
                                           self.arrays["adj_hh_words"], n_cols=h)
         out[:, hub_ids] |= next_h
         return out
+
+
+def bfs_depths(engine: FrontierEngine, root, max_levels: int,
+               bound=None) -> torch.Tensor:
+    """Level-synchronous single-source BFS: ``(V,)`` int32 depths, ``INF`` =
+    unreached; ``bound`` truncates the expansion at that depth.  One row of
+    ``bfs_depths_batch``, whose per-row stopping rule is the reference's
+    scalar one."""
+    dev = engine.arrays["src"].device
+    roots = torch.as_tensor(root, dtype=torch.int32, device=dev).reshape(1)
+    bounds = None if bound is None else \
+        torch.as_tensor(bound, dtype=torch.int32, device=dev).reshape(1)
+    return bfs_depths_batch(engine, roots, max_levels, bounds=bounds)[0]
 
 
 def bfs_depths_batch(engine: FrontierEngine, roots: torch.Tensor,
@@ -156,16 +209,17 @@ def hub_split(graph: Graph, n_hubs: int | None = None) -> HubSplit:
 
 def make_relay(graph: Graph, *, backend: str = "segment",
                edge_mask: torch.Tensor | np.ndarray | None = None,
-               n_hubs: int | None = None) -> FrontierEngine:
+               n_hubs: int | None = None, block_size: int = 0) -> FrontierEngine:
     """Build a ``FrontierEngine`` on the graph's device.
 
     ``edge_mask`` is a static per-edge boolean (the G- mask); it must be
-    symmetric, which any mask of the form ``f[src] & f[dst]`` is.  ``hybrid``
-    also needs the edge set symmetric, which ``from_edges`` guarantees.
+    symmetric, which any mask of the form ``f[src] & f[dst]`` is.  ``csr``
+    and ``hybrid`` also need the edge set symmetric, which ``from_edges``
+    guarantees.  ``n_hubs`` is read by ``hybrid`` only, ``block_size`` by
+    ``csr`` only (0 = one block of every edge).
     """
     if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS} "
-                         f"(the csr backend is not ported yet)")
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
     v, e = graph.n_vertices, graph.n_edges
     dev = graph.device
     arrays: dict[str, Any] = {"src": graph.src, "dst": graph.dst}
@@ -177,6 +231,28 @@ def make_relay(graph: Graph, *, backend: str = "segment",
         if mask_np is not None:
             arrays["mask"] = torch.from_numpy(mask_np).to(dev)
         return FrontierEngine(arrays, backend=backend, n_vertices=v, n_edges=e)
+
+    if backend == "csr":
+        gather, key, m = graph.dst, graph.src, mask_np
+        if m is not None:
+            m = torch.from_numpy(m).to(dev)
+        pad = (-e) % block_size if block_size else 0
+        if pad:
+            gather = torch.cat([gather, gather.new_zeros((pad,))])
+            key = torch.cat([key, key.new_full((pad,), v)])
+            if m is not None:
+                m = torch.cat([m, m.new_zeros((pad,))])
+        # each block's row starts for rows 0..V (V = padding) and its end
+        b = block_size or max(e, 1)
+        rows = torch.arange(v + 2, dtype=key.dtype, device=dev)
+        arrays["csr_bounds"] = torch.stack([
+            torch.searchsorted(key[i:i + b].contiguous(), rows)
+            for i in range(0, max(key.shape[0], 1), b)])
+        arrays["csr_gather"] = gather
+        if m is not None:
+            arrays["csr_mask"] = m
+        return FrontierEngine(arrays, backend=backend, n_vertices=v, n_edges=e,
+                              block_size=block_size)
 
     # hybrid: degree split, dense hub block (mask baked in), compacted tail
     src_np = graph.src.cpu().numpy()

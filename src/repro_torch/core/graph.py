@@ -205,6 +205,35 @@ def grid_graph(rows: int, cols: int, **kw) -> Graph:
     return from_edges(np.asarray(edges, np.int64), rows * cols, **kw)
 
 
+def largest_connected_component(edges: np.ndarray, n: int) -> tuple[np.ndarray, int]:
+    """Relabel ``edges`` to the largest connected component: ``(edges in
+    the component, renumbered 0..n_kept-1, n_kept)``.  Host-side union-find,
+    as in the reference."""
+    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    parent = np.arange(n)
+
+    def find(x: int) -> int:
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for a, b in edges:
+        ra, rb = find(int(a)), find(int(b))
+        if ra != rb:
+            parent[ra] = rb
+    roots = np.array([find(i) for i in range(n)])
+    vals, counts = np.unique(roots, return_counts=True)
+    big = vals[np.argmax(counts)]
+    keep = roots == big
+    remap = -np.ones(n, np.int64)
+    remap[keep] = np.arange(keep.sum())
+    mask = keep[edges[:, 0]] & keep[edges[:, 1]]
+    return remap[edges[mask]], int(keep.sum())
+
+
 def select_landmarks(graph: Graph, n_landmarks: int) -> np.ndarray:
     """Highest-degree vertices, ties by vertex id (paper §6.1)."""
     deg = graph.degrees().cpu().numpy()

@@ -121,3 +121,17 @@ def build_labelling(graph: Graph, landmarks, *, max_levels: int = 256,
     return LabellingScheme(landmarks=landmarks, lid=lid,
                            is_landmark=is_landmark, label_dist=label_dist,
                            meta_w=meta_w, meta_dist=meta_dist)
+
+
+def labelling_size_bytes(scheme: LabellingScheme) -> dict:
+    """The paper's size accounting (§6.1): 8 bits per (vertex, landmark)
+    for L, plus (pair id, weight) per meta-graph edge.  ``packing.
+    packed_size_bytes`` gives the bytes the packed tables occupy."""
+    v = int(scheme.label_dist.shape[0])
+    r = scheme.n_landmarks
+    n_meta = int((scheme.meta_w < INF).sum())
+    return {
+        "label_bytes": v * r,                # 8 bits per (vertex, landmark)
+        "meta_bytes": n_meta * (4 + 1),      # (pair id, weight)
+        "n_meta_edges": n_meta,
+    }

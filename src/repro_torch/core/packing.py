@@ -96,6 +96,15 @@ def pack_dist(a, dtype, *, device=None) -> torch.Tensor:
     return torch.where(a >= INF, sent, a).to(_TORCH_OF[_np_dtype(dtype)])
 
 
+def take(table: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
+    """``table[index]`` for a packed (or any) table, on any device.  CUDA
+    has no indexing kernel for uint16, so a uint16 table is gathered through
+    its int16 view, which holds the same bits, and viewed back."""
+    if table.dtype == torch.uint16:
+        return table.view(torch.int16)[index].view(torch.uint16)
+    return table[index]
+
+
 def widen_dist(a: torch.Tensor) -> torch.Tensor:
     """Widen a (possibly packed) distance tensor to int32 with INF restored:
     signed inputs pass through as int32, uint8/uint16 are sentinel-decoded."""

@@ -35,7 +35,7 @@ import torch
 from .frontier import bfs_depths_batch, make_relay
 from .graph import INF, Graph, resolve_device, select_landmarks
 from .labelling import LabellingScheme, build_labelling
-from .packing import pack_labelling, widen_dist
+from .packing import pack_labelling, take, widen_dist
 from .search import Query, guided_search, make_search_context
 from .sketch import compute_sketch_batch
 
@@ -110,9 +110,9 @@ def _landmark_pair_lanes(lm_dist, meta_dist, src, dst, rev_edge, ru, rv):
     edge_mask (B, E)), label-only."""
     ru = ru.to(torch.int64)
     rv = rv.to(torch.int64)
-    d = torch.clamp(widen_dist(meta_dist[ru, rv]), max=INF).to(torch.int32)
-    mask = _certify_spg_edges_batch(src, dst, rev_edge, widen_dist(lm_dist[ru]),
-                                    widen_dist(lm_dist[rv]), d)
+    d = torch.clamp(widen_dist(take(meta_dist, ru, rv)), max=INF).to(torch.int32)
+    mask = _certify_spg_edges_batch(src, dst, rev_edge, widen_dist(take(lm_dist, ru)),
+                                    widen_dist(take(lm_dist, rv)), d)
     return d, mask & (d < INF)[:, None]
 
 
@@ -121,7 +121,7 @@ def _landmark_onesided_lanes(engine, lm_dist, src, dst, rev_edge, roots,
     """One-sided landmark lane: one batched full-graph BFS, each row bounded
     at its own d - 1 (``engine`` is the unmasked full-graph relay)."""
     roots = roots.to(torch.int64)
-    to_lm = widen_dist(lm_dist[r_idx.to(torch.int64)])              # (B, V)
+    to_lm = widen_dist(take(lm_dist, r_idx.to(torch.int64)))        # (B, V)
     d = to_lm[torch.arange(roots.shape[0], device=roots.device), roots]
     bounds = torch.where(d < INF, d - 1, 0)   # disconnected rows never expand
     depth = bfs_depths_batch(engine, roots, max_levels, bounds=bounds)
@@ -180,8 +180,8 @@ class QbSIndex:
         Landmark-endpoint rows are garbage here; the planner routes them to
         the landmark lane steps."""
         label_dist = self.packed.label_dist
-        lu = label_dist[us.to(torch.int64)]
-        lv = label_dist[vs.to(torch.int64)]
+        lu = take(label_dist, us.to(torch.int64))
+        lv = take(label_dist, vs.to(torch.int64))
         sk = compute_sketch_batch(lu, lv, self.packed.meta_w,
                                   self.packed.meta_dist)
         q = Query(u=us, v=vs, d_top=sk.d_top, du_land=sk.du_land,

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("minplus", "bitmap_expand_packed")
+SOURCES = ("minplus", "bitmap_expand_packed", "bitmap_expand")
 
 LAUNCHES = {name: 0 for name in SOURCES}
 

@@ -3,7 +3,8 @@
 The device of the tensors decides, and there is no ``use_pallas`` switch:
 
 * a CUDA tensor launches the hand-written kernel (``minplus.minplus_cuda``,
-  ``frontier.bitmap_expand_packed_cuda``) or raises: no ``try`` that falls
+  ``frontier.bitmap_expand_packed_cuda``, ``frontier.bitmap_expand_cuda``)
+  or raises: no ``try`` that falls
   back, no path that goes on running on the CPU;
 * a CPU tensor takes the kernel's plain PyTorch version (``ref``).
 
@@ -17,11 +18,16 @@ import torch
 
 from . import ref
 from ._build import LAUNCHES
-from .frontier import bitmap_expand_packed_cuda, check_expand_args
+from .frontier import (
+    bitmap_expand_cuda,
+    bitmap_expand_packed_cuda,
+    check_dense_expand_args,
+    check_expand_args,
+)
 from .minplus import check_minplus_args, minplus_cuda
 
-__all__ = ["LAUNCHES", "bitmap_expand_packed", "minplus", "reset_launches",
-           "sketch_d_top"]
+__all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "minplus",
+           "reset_launches", "sketch_d_top"]
 
 
 def reset_launches() -> None:
@@ -44,6 +50,16 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return minplus_cuda(a, b)
     check_minplus_args(a, b)
     return ref.minplus_ref(a, b)
+
+
+def bitmap_expand(frontier: torch.Tensor,
+                  adjacency: torch.Tensor) -> torch.Tensor:
+    """One frontier expansion over a dense adjacency block:
+    (R, V) bool x (V, W) bool -> (R, W) bool."""
+    if _on_cuda(frontier, adjacency):
+        return bitmap_expand_cuda(frontier, adjacency)
+    check_dense_expand_args(frontier, adjacency)
+    return ref.bitmap_expand_ref(frontier, adjacency)
 
 
 def bitmap_expand_packed(frontier: torch.Tensor, adj_words: torch.Tensor, *,

@@ -14,6 +14,14 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[:, :, None] + b[None, :, :]).amin(dim=1)
 
 
+def bitmap_expand_ref(frontier: torch.Tensor,
+                      adjacency: torch.Tensor) -> torch.Tensor:
+    """One level-synchronous BFS expansion over a dense adjacency block:
+    next[r, w] = OR_v frontier[r, v] & adjacency[v, w], as the f32 OR-AND
+    product thresholded at 0.5 (exact for 0/1 inputs)."""
+    return (frontier.to(torch.float32) @ adjacency.to(torch.float32)) > 0.5
+
+
 def bitmap_expand_packed_ref(frontier: torch.Tensor, adj_words: torch.Tensor,
                              n_cols: int) -> torch.Tensor:
     """next[r, w] = OR_v frontier[r, v] & bit(adj_words[v, w // 32], w % 32):

@@ -1,8 +1,9 @@
 """Port vs reference: the frontier engine.
 
-``segment_or``, the relay (with and without the baked-in G- mask) and the
-batched BFS with per-row bounds, on the ``segment`` and ``hybrid`` backends
-of both packages.  The reference's hybrid engine runs its Pallas
+``segment_or``, the relay (with and without the baked-in G- mask), the
+batched BFS with per-row bounds and the single-source BFS, on the
+``segment``, ``csr`` (with and without ``block_size``) and ``hybrid``
+backends of both packages.  The reference's hybrid engine runs its Pallas
 ``bitmap_expand_packed`` kernel in interpret mode (``use_pallas=True,
 interpret=True``); the port's takes the kernel's plain version on the CPU.
 Every comparison is exact, with zero tolerance: the relay is boolean and
@@ -37,16 +38,20 @@ def _graphs():
 GRAPHS = _graphs()
 
 
+def _gminus_mask(gj):
+    lms = jg.select_landmarks(gj, 5)
+    is_lm = np.zeros((gj.n_vertices,), bool)
+    is_lm[lms] = True
+    src, dst = np.asarray(gj.src), np.asarray(gj.dst)
+    return ~is_lm[src] & ~is_lm[dst]
+
+
 def _engines(name, backend, masked):
     gj, gt = GRAPHS[name]
-    mask = None
-    if masked:
-        lms = jg.select_landmarks(gj, 5)
-        is_lm = np.zeros((gj.n_vertices,), bool)
-        is_lm[lms] = True
-        src, dst = np.asarray(gj.src), np.asarray(gj.dst)
-        mask = ~is_lm[src] & ~is_lm[dst]
+    mask = _gminus_mask(gj) if masked else None
     kw = {"n_hubs": 12} if backend == "hybrid" else {}
+    if backend == "csr":
+        kw = {"block_size": 37}     # divides no graph's edge count here
     pallas = {"use_pallas": True, "interpret": True} if backend == "hybrid" else {}
     ej = jf.make_relay(gj, backend=backend, edge_mask=mask, **kw, **pallas)
     et = tf.make_relay(gt, backend=backend, edge_mask=mask, **kw)
@@ -54,7 +59,7 @@ def _engines(name, backend, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("backend", ["segment", "hybrid"])
+@pytest.mark.parametrize("backend", ["segment", "csr", "hybrid"])
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_relay_matches_reference(name, backend, masked):
     gj, gt, ej, et = _engines(name, backend, masked)
@@ -68,7 +73,7 @@ def test_relay_matches_reference(name, backend, masked):
     assert np.array_equal(et.relay(torch.from_numpy(f[2])).numpy(), want[2])
 
 
-@pytest.mark.parametrize("backend", ["segment", "hybrid"])
+@pytest.mark.parametrize("backend", ["segment", "csr", "hybrid"])
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_bfs_depths_batch_with_bounds(name, backend):
     gj, gt, ej, et = _engines(name, backend, masked=False)
@@ -86,6 +91,22 @@ def test_bfs_depths_batch_with_bounds(name, backend):
     want = np.asarray(jf.bfs_depths_batch(ej, jnp.asarray(roots), 2))
     got = tf.bfs_depths_batch(et, torch.from_numpy(roots), 2)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("backend", ["segment", "csr", "hybrid"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_bfs_depths_single_source(name, backend):
+    gj, gt, ej, et = _engines(name, backend, masked=False)
+    for root, bound in ((0, None), (7, None), (gj.n_vertices - 1, None),
+                        (3, 0), (3, 2), (11, 64)):
+        want = np.asarray(jf.bfs_depths(
+            ej, jnp.int32(root), 64,
+            bound=None if bound is None else jnp.int32(bound)))
+        got = tf.bfs_depths(et, root, 64, bound=bound)
+        assert got.dtype == torch.int32 and got.shape == (gj.n_vertices,)
+        assert np.array_equal(got.numpy(), want)
+    want = np.asarray(jf.bfs_depths(ej, jnp.int32(5), 1))
+    assert np.array_equal(tf.bfs_depths(et, torch.tensor(5), 1).numpy(), want)
 
 
 def test_segment_or_empty_segments():
@@ -114,6 +135,9 @@ def test_hub_split_matches_reference(n_hubs):
 
 def test_unknown_backend_refused():
     _, gt = GRAPHS["gnp"]
-    for backend in ("csr", "dense"):
+    for backend in ("dense", "pull", ""):
         with pytest.raises(ValueError):
             tf.make_relay(gt, backend=backend)
+    with pytest.raises(ValueError):
+        tf.FrontierEngine({}, backend="dense", n_vertices=1, n_edges=0)
+    assert tf.BACKENDS == jf.BACKENDS

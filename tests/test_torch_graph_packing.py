@@ -143,3 +143,22 @@ def test_pack_labelling_matches_reference():
     for a, b in zip(pj, pt):
         assert np.array_equal(np.asarray(a), b.numpy())
     assert tp.packed_size_bytes(pt) == jp.packed_size_bytes(pj)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_take_gathers_packed_rows(dtype):
+    """``take`` gathers rows (and element pairs) of a packed table bit for
+    bit, uint16 through its int16 view."""
+    from repro_torch.core.packing import pack_dist, take, widen_dist
+
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 250, size=(30, 6)).astype(np.int32)
+    a[rng.random(a.shape) < 0.2] = INF
+    t = pack_dist(a, dtype, device="cpu")
+    rows = torch.tensor([3, 0, 29, 3], dtype=torch.int64)
+    cols = torch.tensor([5, 1, 0, 2], dtype=torch.int64)
+    got = take(t, rows)
+    assert got.dtype == t.dtype
+    assert np.array_equal(widen_dist(got).numpy(), a[rows.numpy()])
+    assert np.array_equal(widen_dist(take(t, rows, cols)).numpy(),
+                          a[rows.numpy(), cols.numpy()])

@@ -66,6 +66,8 @@ def test_port_runs_with_jax_blocked():
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.convert import graph_from_numpy, index_from_numpy
     from repro_torch.core import QbSIndex, build_labelling, from_edges, gnp_random_graph
+    from repro_torch.core import baselines
+    from repro_torch.launch import serve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = gnp_random_graph(20, 3.0, seed=1, device="cpu")
@@ -75,6 +77,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: build_labelling(g, np.array([0, 1], np.int32)),
                  lambda: QbSIndex.build(g, n_landmarks=2),
                  lambda: graph_from_numpy(*arrays),
-                 lambda: index_from_numpy(arrays, [None] * 6)):
+                 lambda: index_from_numpy(arrays, [None] * 6),
+                 lambda: baselines.bfs_distances(g, 0),
+                 lambda: baselines.bfs_spg(g, 0, 5),
+                 lambda: baselines.bibfs_spg_batch(g, [0], [5]),
+                 lambda: serve.main(["--n", "40", "--queries", "2"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

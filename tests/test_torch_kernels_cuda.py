@@ -68,3 +68,73 @@ def test_bitmap_expand_packed_kernel_matches_plain(cuda_device, k, v, w):
     got = ops.bitmap_expand_packed(f, words, n_cols=w)
     assert LAUNCHES["bitmap_expand_packed"] == count + 1
     assert torch.equal(got, ref.bitmap_expand_packed_ref(f, words, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v,w", [(1, 1, 1), (8, 128, 128), (20, 100, 100),
+                                   (20, 257, 257), (3, 300, 300), (64, 512, 512),
+                                   (40, 128, 128), (17, 70, 90), (33, 1000, 5),
+                                   (64, 2048, 2048)])
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5])
+def test_bitmap_expand_kernel_matches_plain(cuda_device, r, v, w, density):
+    rng = np.random.default_rng(r + v + w)
+    f = torch.from_numpy(rng.random((r, v)) < 0.1).to(cuda_device)
+    adj = torch.from_numpy(rng.random((v, w)) < density).to(cuda_device)
+    count = LAUNCHES["bitmap_expand"]
+    got = ops.bitmap_expand(f, adj)
+    assert LAUNCHES["bitmap_expand"] == count + 1
+    assert torch.equal(got, ref.bitmap_expand_ref(f, adj))
+    none = ops.bitmap_expand(torch.zeros_like(f), adj)   # all-False frontier
+    assert not bool(none.any())
+
+
+@pytest.mark.cuda
+def test_bitmap_expand_kernel_refuses(cuda_device):
+    f = torch.zeros((4, 8), dtype=torch.bool, device=cuda_device)
+    adj = torch.zeros((8, 6), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="mixed"):
+        ops.bitmap_expand(f.cpu(), adj)
+    with pytest.raises(ValueError, match="bool"):
+        ops.bitmap_expand(f, adj.to(torch.uint8))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bitmap_expand(f, torch.zeros((6, 8), dtype=torch.bool,
+                                         device=cuda_device).T)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ops.bitmap_expand(f, adj.T.contiguous())
+
+
+@pytest.mark.cuda
+def test_uint16_tables_serve_on_the_card(cuda_device):
+    """A 300-vertex path promotes the packed tables to uint16, which CUDA
+    cannot index directly; the card's answers equal the CPU's."""
+    from repro_torch.core import QbSIndex, grid_graph
+
+    us = np.array([0, 10, 150, 299, 42, 7, 3], np.int32)
+    vs = np.array([299, 290, 150, 0, 257, 298, 5], np.int32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        g = grid_graph(1, 300, device=dev)
+        idx = QbSIndex.build(g, landmarks=np.array([0, 299], np.int32), chunk=4,
+                             max_levels=400, device=dev)
+        assert idx.packed.label_dist.dtype == torch.uint16
+        out.append(idx.query_batch_arrays(us, vs))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert np.array_equal(out[0][1], out[1][1])
+
+
+@pytest.mark.cuda
+def test_bitmap_expand_kernel_unaligned_bases(cuda_device):
+    """Rows of 16-byte multiples from a base that is not 16-byte aligned take
+    the byte-load path and give the same bits."""
+    from repro_torch.kernels.frontier import dense_vector_loads
+
+    rng = np.random.default_rng(3)
+    f = torch.from_numpy(rng.random((40, 128)) < 0.2).to(cuda_device)
+    adj = torch.from_numpy(rng.random((128, 128)) < 0.05).to(cuda_device)
+    shifted = torch.zeros(128 * 128 + 1, dtype=torch.bool, device=cuda_device)
+    shifted[1:] = adj.reshape(-1)
+    adj_off = shifted[1:].view(128, 128)
+    assert dense_vector_loads(f, adj) and not dense_vector_loads(f, adj_off)
+    want = ref.bitmap_expand_ref(f, adj)
+    assert torch.equal(ops.bitmap_expand(f, adj), want)
+    assert torch.equal(ops.bitmap_expand(f, adj_off), want)

@@ -1,7 +1,7 @@
 """Port vs reference: offline labelling (Algorithm 2) and sketches (Eq. 3).
 
-``build_labelling`` on the ``segment`` and ``hybrid`` backends of both
-packages (the reference's hybrid engine runs its Pallas kernel in interpret
+``build_labelling`` on the ``segment``, ``csr`` (blocked) and ``hybrid``
+backends of both packages (the reference's hybrid engine runs its Pallas kernel in interpret
 mode), then ``compute_sketch_batch`` on packed and unpacked rows (the
 reference with ``use_pallas=True``, its min-plus kernel in interpret mode;
 the port's ``ops.sketch_d_top`` takes the plain version on the CPU).
@@ -45,7 +45,7 @@ def schemes():
     return out
 
 
-@pytest.mark.parametrize("backend", ["segment", "hybrid"])
+@pytest.mark.parametrize("backend", ["segment", "csr", "hybrid"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_build_labelling_bit_identical(schemes, name, backend):
     gj, gt, lms, sj = schemes[name]
@@ -53,12 +53,22 @@ def test_build_labelling_bit_identical(schemes, name, backend):
     if backend == "hybrid":
         sj = jl.build_labelling(gj, lms, backend="hybrid", use_pallas=True,
                                 interpret=True, **kw)
+    if backend == "csr":
+        kw = {"block_size": 50}
+        sj = jl.build_labelling(gj, lms, backend="csr", **kw)
     st = tl.build_labelling(gt, lms, backend=backend, device="cpu", **kw)
     for f in SCHEME_FIELDS:
         a, b = np.asarray(getattr(sj, f)), getattr(st, f).numpy()
         assert a.dtype == b.dtype, f
         assert np.array_equal(a, b), f
     assert st.n_landmarks == sj.n_landmarks
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_labelling_size_bytes_matches_reference(schemes, name):
+    gj, gt, lms, sj = schemes[name]
+    st = tl.build_labelling(gt, lms, device="cpu")
+    assert tl.labelling_size_bytes(st) == jl.labelling_size_bytes(sj)
 
 
 def test_meta_apsp_matches_reference():

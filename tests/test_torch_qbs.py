@@ -2,7 +2,7 @@
 ``query_batch`` / ``query_batch_arrays``.
 
 Each graph is built by both packages from the same seed; the port answers
-on the ``segment`` and ``hybrid`` backends (its kernels' plain versions on
+on the ``segment``, ``csr`` and ``hybrid`` backends (its kernels' plain versions on
 the CPU) and is held against ``repro.core.QbSIndex`` (on one graph with the
 hybrid engine's Pallas kernel in interpret mode) and against the numpy
 serving oracle in ``tests/helpers/serving_oracle.py``.  The batches cover
@@ -38,6 +38,8 @@ CASES = {
     "split": (lambda m, **kw: m.from_edges(SPLIT_EDGES, 60, **kw), 4),
 }
 HYBRID = {"n_hubs": 16}
+CSR = {"block_size": 100}
+ENGINE_OPTS = {"segment": None, "csr": CSR, "hybrid": HYBRID}
 SCHEME_FIELDS = ("landmarks", "lid", "is_landmark", "label_dist", "meta_w",
                  "meta_dist")
 
@@ -70,8 +72,7 @@ def reference():
 def _port_index(name, backend):
     gen, nl = CASES[name]
     return TIndex.build(gen(tg, device="cpu"), n_landmarks=nl, chunk=8,
-                        backend=backend,
-                        engine_opts=HYBRID if backend == "hybrid" else None,
+                        backend=backend, engine_opts=ENGINE_OPTS[backend],
                         device="cpu")
 
 
@@ -80,7 +81,7 @@ def _same_scheme(sj, st):
         assert np.array_equal(np.asarray(getattr(sj, f)), getattr(st, f).numpy()), f
 
 
-@pytest.mark.parametrize("backend", ["segment", "hybrid"])
+@pytest.mark.parametrize("backend", ["segment", "csr", "hybrid"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_query_batch_matches_reference_and_oracle(reference, name, backend):
     gj, idx_j, us, vs, (d_j, m_j) = reference[name]
@@ -112,6 +113,20 @@ def test_hybrid_matches_reference_with_pallas_interpret(reference):
     assert np.array_equal(m, np.asarray(m_j))
 
 
+def test_csr_matches_reference_csr_engine(reference):
+    """The reference's own ``csr`` index (blocked) against the port's."""
+    gj, _, us, vs, _ = reference["split"]
+    idx_j = JIndex.build(gj, n_landmarks=4, chunk=8, backend="csr",
+                         engine_opts=CSR)
+    d_j, m_j = idx_j.query_batch_arrays(us, vs)
+    idx = _port_index("split", "csr")
+    assert idx.ctx.engine.backend == "csr" and idx.ctx.engine.block_size == 100
+    _same_scheme(idx_j.scheme, idx.scheme)
+    d, m = idx.query_batch_arrays(us, vs)
+    assert np.array_equal(d, np.asarray(d_j))
+    assert np.array_equal(m, np.asarray(m_j))
+
+
 @pytest.mark.parametrize("backend", ["segment", "hybrid"])
 def test_convert_serves_on_the_reference_labelling(reference, backend):
     gj, idx_j, us, vs, (d_j, m_j) = reference["gnp"]
@@ -129,7 +144,7 @@ def test_convert_serves_on_the_reference_labelling(reference, backend):
     assert all(torch.equal(a, b) for a, b in zip(g, idx.graph))
 
 
-@pytest.mark.parametrize("backend", ["segment", "hybrid"])
+@pytest.mark.parametrize("backend", ["segment", "csr", "hybrid"])
 def test_high_diameter_path_promotes_to_uint16(backend):
     gj = jg.grid_graph(1, 300)
     gt = tg.grid_graph(1, 300, device="cpu")
@@ -138,7 +153,7 @@ def test_high_diameter_path_promotes_to_uint16(backend):
     st = t_build_labelling(gt, lms, max_levels=400, device="cpu")
     _same_scheme(sj, st)
     idx = TIndex(gt, st, chunk=8, backend=backend,
-                 engine_opts=HYBRID if backend == "hybrid" else None)
+                 engine_opts=ENGINE_OPTS[backend])
     assert idx.packed.dtype == np.uint16
     assert idx.packed.label_dist.dtype == torch.uint16
     us = np.array([0, 10, 150, 299, 42, 7], np.int32)
