@@ -13,18 +13,23 @@ Phases (each raises on failure; nothing is caught):
 2. build the kernels (one ``nvcc`` per source, in parallel);
 3. each kernel against its plain version on the card, exact equality,
    with kernel / plain / library-call times (median of 30 timed runs);
+   the fused ``hybrid_relay`` is checked on the real graph once the hybrid
+   index exists (after its path's counts are read): on the full-graph and
+   the G- engines at K = 1, 32 and 40, against its plain version and
+   timed beside cuSPARSE's SpMM (``torch.sparse.mm``) on the relay as an
+   f32 CSR matrix, the one library call that computes it, and the PyTorch
+   ops that relayed before it (not one call);
 4. the main path: ``barabasi_albert_graph(1_100_000, 3, seed=0)``,
    ``QbSIndex.build(backend="hybrid")`` and ``query_batch`` on every lane,
    then the same with ``backend="segment"`` and with ``backend="csr"``
    (``block_size = 1 << 21``, so the blocked loop runs), which must give
    the same tables and answers; the launch counters are set to 0 just
    before each backend's run and read just after (hybrid must launch
-   ``minplus`` and ``bitmap_expand_packed``, segment and csr ``minplus``
-   only, none of them ``bitmap_expand``);
-5. the dense expansion's path: ``kernels.ops.bitmap_expand`` on the hybrid
-   index's real hub block (unpacked) and the landmarks' level-1 and
-   level-2 frontier rows, as the oracle of ``bitmap_expand_packed``; it
-   must launch ``bitmap_expand`` and nothing else;
+   ``minplus`` and ``hybrid_relay``, segment and csr ``minplus`` only);
+5. the dense expansion's path: ``kernels.ops.bitmap_expand_packed`` and
+   ``kernels.ops.bitmap_expand`` (its oracle, on the block unpacked) on the
+   hybrid index's real hub block and the landmarks' level-1 and level-2
+   frontier rows; it must launch those two and nothing else;
 6. 8 sampled answers against a scipy BFS oracle; the baselines on the
    card: Bi-BFS on 32 general pairs and the two-BFS oracle on 2 pairs of
    the 1.1 M-vertex graph must give the QbS answers, and PPL (with and
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -111,15 +117,32 @@ def device_ms(fn, calls: int = 200) -> float:
     return sum(_device_us(e) for e in device_events(prof)) / calls / 1e3
 
 
+def kernel_split(fn, calls: int = 20):
+    """Device time per call of each kernel ``fn`` launches, by name (from a
+    torch.profiler trace of ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [re.search(r"(\w+)(<[^>]*>)?\(", e.key) for e in device_events(prof)]
+    return [(m.group(1) if m else e.key[:40], _device_us(e) / calls)
+            for m, e in zip(names, device_events(prof))]
+
+
 def rand_dist(rng, shape, dev, inf):
     x = rng.integers(0, 64, size=shape)
     x = np.where(rng.random(shape) < 0.2, inf, x)
     return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
 
-def measure(name, fns):
+def measure(name, fns, reps=30, calls=50, profiled=200):
     """Wall per call and device time per call of each named callable."""
-    out = {k: (time_ms(fn), device_ms(fn)) for k, fn in fns.items()}
+    out = {k: (time_ms(fn, reps, calls), device_ms(fn, profiled))
+           for k, fn in fns.items()}
     log(f"{name}: equal; " + ", ".join(
         f"{k} {w * 1e3:.1f} us/call ({d * 1e3:.2f} us device)"
         for k, (w, d) in out.items()))
@@ -163,7 +186,7 @@ def check_kernels(dev, ref, INF):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     for k, v, n_cols in [(40, 128, 128), (32, 128, 128), (64, 128, 128),
-                         (40, 128, 100)]:
+                         (40, 128, 100), (32, 2048, 128)]:
         f = torch.as_tensor(rng.random((k, v)) < 0.3, device=dev)
         adj = torch.as_tensor(rng.random((v, n_cols)) < 0.1, device=dev)
         words = pack_bits(adj).contiguous()
@@ -237,6 +260,111 @@ def check_kernels(dev, ref, INF):
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=t["torch.matmul on f32"])
     return rows
+
+
+def old_relay(eng, segment_or, ops):
+    """The PyTorch ops that ran the hybrid relay before the fused kernel
+    (gather, int32 ``scatter_reduce`` over the tail, the hub block through
+    ``bitmap_expand_packed``, ``index_put``), on the engine's arrays."""
+    a = eng.arrays
+    v = eng.n_vertices
+    ptr = a["tail_ptr"].long()
+    tail_src = torch.repeat_interleave(torch.arange(v, device=ptr.device),
+                                       ptr[1:] - ptr[:-1])
+    tail_dst = a["tail_col"]
+    hubs = a["hub_ids"].long()
+    words = a["adj_hh_words"]
+
+    def run(f):
+        out = segment_or(f[:, tail_src], tail_dst, v)
+        out[:, hubs] |= ops.bitmap_expand_packed(f[:, hubs].contiguous(), words,
+                                                 n_cols=hubs.numel())
+        return out
+    return run
+
+
+def relay_matrix(core, eng):
+    """The engine's relay as one (V, V) float32 CSR matrix A, for the
+    library yardstick ``torch.sparse.mm(A, f.T) > 0`` (cuSPARSE SpMM): row w
+    holds tail row w and, for hub p, the hub block's row p at the hubs'
+    columns.  Built once, outside every timed window; the port never calls
+    it."""
+    a = eng.arrays
+    v = eng.n_vertices
+    ptr = a["tail_ptr"].long()
+    rows = torch.repeat_interleave(torch.arange(v, device=ptr.device), ptr.diff())
+    hubs = a["hub_ids"].long()
+    hp, hq = torch.nonzero(core.unpack_bits(a["adj_hh_words"], hubs.numel()),
+                           as_tuple=True)
+    idx = torch.stack([torch.cat([rows, hubs[hp]]),
+                       torch.cat([a["tail_col"].long(), hubs[hq]])])
+    ones = torch.ones((idx.shape[1],), dtype=torch.float32, device=ptr.device)
+    return torch.sparse_coo_tensor(idx, ones, (v, v)).coalesce().to_sparse_csr()
+
+
+def check_hybrid_relay(core, ops, ref, idx_h):
+    """The fused relay on the real hybrid index: the full-graph engine (the
+    labelling's and the one-sided lane's) and the G- engine (the search's),
+    at K = 1, 32 and 40 rows of the landmarks' level-1..3 frontiers, against
+    its plain version and the library yardstick (cuSPARSE SpMM on the f32
+    relay matrix), exactly; kernel, plain, library and old-ops times; the
+    bound from the arrays the kernel must read and write.  Returns the JSON
+    row (G- engine, K = 32: a query chunk's relay level)."""
+    from repro_torch.core.frontier import segment_or
+    from repro_torch.kernels.frontier import cached_schedule, hybrid_relay_cuda
+
+    lm = core.widen_dist(idx_h.packed.lm_dist)                  # (R, V)
+    levels = torch.cat([lm == 1, lm == 2, lm == 3])
+    row = None
+    for label, eng in (("full graph", idx_h._full_engine),
+                       ("G-", idx_h.ctx.engine)):
+        a = eng.arrays
+        v = eng.n_vertices
+        args = (a["tail_ptr"], a["tail_col"], a["hub_ids"], a["adj_hh_words"])
+        old = old_relay(eng, segment_or, ops)
+        mat = relay_matrix(core, eng)
+        e_tail = a["tail_col"].numel()
+        n_warp_rows = cached_schedule(a["tail_ptr"], a["hub_ids"])[0].numel()
+        for k in (1, 32, 40):
+            f = levels[20:20 + k].contiguous() if k == 1 else levels[:k].contiguous()
+            ft = f.T.to(torch.float32).contiguous()
+            got = hybrid_relay_cuda(f, *args)
+            want = ref.hybrid_relay_ref(f, *args)
+            lib = (torch.sparse.mm(mat, ft) > 0).T
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            if err != 0 or not torch.equal(got, old(f)) or not torch.equal(got, lib):
+                raise AssertionError(f"hybrid_relay ({label}, K={k}): kernel, "
+                                     f"plain, library and old ops disagree "
+                                     f"(max err {err})")
+            t = measure(f"hybrid_relay {label} K={k} ({v} vertices, {e_tail} "
+                        f"tail slots, {n_warp_rows} warp rows; "
+                        f"{int(f.sum())} frontier bits -> {int(got.sum())})", {
+                            "kernel": lambda: hybrid_relay_cuda(f, *args),
+                            "plain": lambda: ref.hybrid_relay_ref(f, *args),
+                            "torch.sparse.mm on f32 CSR": lambda: torch.sparse.mm(mat, ft),
+                            "PyTorch ops, not one call": lambda: old(f)},
+                        reps=10, calls=10, profiled=20)
+            w = (k + 31) // 32
+            h = a["hub_ids"].numel()
+            n_bytes = (2 * k * v + 4 * e_tail + 4 * (v + 1) + 4 * h
+                       + a["adj_hh_words"].numel() * 4)
+            n_ops = w * (e_tail + int(core.unpack_bits(a["adj_hh_words"], h).sum()))
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            log(f"  bound {b_ms * 1e3:.2f} us by {b_by} ({n_bytes} bytes); per "
+                "launch " + ", ".join(f"{n} {us:.2f} us" for n, us in kernel_split(
+                    lambda: hybrid_relay_cuda(f, *args))))
+            if label == "G-" and k == 32:
+                row = dict(
+                    name="hybrid_relay", route="cuda",
+                    source="src/repro_torch/kernels/csrc/hybrid_relay.cu",
+                    replaces="src/repro/kernels/frontier.py:148",
+                    max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=t["torch.sparse.mm on f32 CSR"],
+                    pytorch_ops_ms=t["PyTorch ops, not one call"])
+        del mat
+    return row
 
 
 def bfs_oracle(graph, pairs, INF):
@@ -406,11 +534,11 @@ def same_as_hybrid(idx_h, res_h, idx_b, res_b, backend):
 
 
 def dense_oracle(core, ops, ref, idx_h):
-    """The dense expansion's path: ``ops.bitmap_expand`` over the hybrid
-    index's hub block, unpacked, on the landmarks' level-1 and level-2
-    frontier rows (hub columns), as the oracle of ``bitmap_expand_packed``.
-    The packed kernel runs first, outside the counted window; the counters
-    are set to 0 just before the dense call and read just after."""
+    """The dense expansion's path: ``ops.bitmap_expand_packed`` over the
+    hybrid index's hub block and ``ops.bitmap_expand`` over the same block
+    unpacked (its oracle), on the landmarks' level-1 and level-2 frontier
+    rows (hub columns).  The counters are set to 0 just before the two calls
+    and read just after."""
     eng = idx_h.ctx.engine
     hub_ids = eng.arrays["hub_ids"].to(torch.int64)
     words = eng.arrays["adj_hh_words"]
@@ -418,9 +546,9 @@ def dense_oracle(core, ops, ref, idx_h):
     adj = core.unpack_bits(words, h).contiguous()
     lm = core.widen_dist(idx_h.packed.lm_dist)                  # (R, V)
     rows = torch.cat([lm == 1, lm == 2])[:, hub_ids].contiguous()
-    want = ops.bitmap_expand_packed(rows, words, n_cols=h)
     plain = ref.bitmap_expand_ref(rows, adj)
     ops.reset_launches()
+    want = ops.bitmap_expand_packed(rows, words, n_cols=h)
     got = ops.bitmap_expand(rows, adj)
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
@@ -548,6 +676,7 @@ def main() -> int:
     launches = {"hybrid": dict(ops.LAUNCHES)}
     log(f"launches on the hybrid path (build + query_batch): {launches['hybrid']}")
     time_lanes(idx_h, ops, us, vs, lanes, chunk)
+    rows["hybrid_relay"] = check_hybrid_relay(core, ops, ref, idx_h)
 
     ops.reset_launches()
     idx_s, res_s = run_backend(core, ops, g, "segment", us, vs, n_landmarks, chunk)
@@ -567,9 +696,9 @@ def main() -> int:
     time_lanes(idx_c, ops, us, vs, lanes, chunk)
 
     launches["dense_oracle"] = dense_oracle(core, ops, ref, idx_h)
-    expect = {"hybrid": ("minplus", "bitmap_expand_packed"),
+    expect = {"hybrid": ("minplus", "hybrid_relay"),
               "segment": ("minplus",), "csr": ("minplus",),
-              "dense_oracle": ("bitmap_expand",)}
+              "dense_oracle": ("bitmap_expand_packed", "bitmap_expand")}
     for path, names in expect.items():
         for name, count in launches[path].items():
             if name in names and count <= 0:
@@ -611,7 +740,8 @@ def main() -> int:
     # phase 8: results
     kernels = []
     for name, main_path in (("minplus", "hybrid"),
-                            ("bitmap_expand_packed", "hybrid"),
+                            ("hybrid_relay", "hybrid"),
+                            ("bitmap_expand_packed", "dense_oracle"),
                             ("bitmap_expand", "dense_oracle")):
         row = rows[name]
         kernels.append({**row, "launches": launches[main_path][name],

@@ -20,11 +20,15 @@ Backends:
   with no atomics (``csr_or``).  ``block_size`` cuts the edge list into
   fixed blocks (padded with key = V, gather = 0) to bound the ``(K, E)``
   message temporary; the blocks OR into a ``(K, V + 1)`` accumulator.
-* ``hybrid``  — degree split: the dense hub-hub block runs through
-  ``kernels.ops.bitmap_expand_packed`` over bit-packed words (the
-  hand-written CUDA kernel on the card, which the reference reaches with
-  ``use_pallas=True``; its plain version on the CPU), the sparse tail
-  keeps ``segment_or`` over a compacted tail edge list; the two are ORed.
+* ``hybrid``  — degree split: the dense hub-hub block (bit-packed words)
+  and the sparse tail (the other edges, as CSR rows ``tail_ptr`` /
+  ``tail_col``), ORed.  Both run in one call of ``kernels.ops.hybrid_relay``:
+  the fused CUDA kernel on the card, a pull over the tail's rows like
+  ``csr``'s plus the hub block's expansion
+  (``bitmap_expand_packed``, which the reference reaches with
+  ``use_pallas=True``), with no ``(K, E)`` message temporary; its plain
+  version (``csr_or`` over the rows, ``bitmap_expand_packed_ref``) on the
+  CPU.
 
 The static G- edge mask is baked in at build time (``make_relay``).
 """
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import csr_or
 from .graph import INF, Graph
 from .packing import pack_bits
 
@@ -54,19 +59,6 @@ def segment_or(messages: torch.Tensor, segment_ids: torch.Tensor,
     idx = segment_ids.to(torch.int64).expand(k, -1)
     acc.scatter_reduce_(1, idx, messages.to(torch.int32), "amax")
     return acc > 0
-
-
-def csr_or(messages: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
-    """OR-reduce per-edge boolean messages ``(K, B)`` whose segment key is
-    sorted into ``(K, N)``: ``bounds`` ``(N + 1,)`` holds each segment's
-    first edge (and B last).  A zero-led int32 prefix sum of the messages,
-    read at the boundaries, counts each segment's true messages; an empty
-    segment counts 0 and comes out False.  No atomics: the key is sorted."""
-    k, b = messages.shape
-    cs = torch.zeros((k, b + 1), dtype=torch.int32, device=messages.device)
-    cs[:, 1:] = messages
-    cs.cumsum_(dim=1)
-    return (cs[:, bounds[1:]] - cs[:, bounds[:-1]]) > 0
 
 
 class FrontierEngine:
@@ -121,19 +113,9 @@ class FrontierEngine:
         return acc[:, :v]
 
     def _relay_hybrid(self, f: torch.Tensor) -> torch.Tensor:
-        hub_ids = self.arrays["hub_ids"]
-        h = hub_ids.shape[0]
-        tail_src = self.arrays.get("tail_src")
-        if tail_src is not None:
-            out = segment_or(f[:, tail_src], self.arrays["tail_dst"],
-                             self.n_vertices)
-        else:
-            out = torch.zeros((f.shape[0], self.n_vertices), dtype=torch.bool,
-                              device=f.device)
-        next_h = ops.bitmap_expand_packed(f[:, hub_ids],
-                                          self.arrays["adj_hh_words"], n_cols=h)
-        out[:, hub_ids] |= next_h
-        return out
+        a = self.arrays
+        return ops.hybrid_relay(f.contiguous(), a["tail_ptr"], a["tail_col"],
+                                a["hub_ids"], a["adj_hh_words"])
 
 
 def bfs_depths(engine: FrontierEngine, root, max_levels: int,
@@ -254,7 +236,7 @@ def make_relay(graph: Graph, *, backend: str = "segment",
         return FrontierEngine(arrays, backend=backend, n_vertices=v, n_edges=e,
                               block_size=block_size)
 
-    # hybrid: degree split, dense hub block (mask baked in), compacted tail
+    # hybrid: degree split, dense hub block (mask baked in), tail as CSR rows
     src_np = graph.src.cpu().numpy()
     dst_np = graph.dst.cpu().numpy()
     split = hub_split(graph, n_hubs)
@@ -265,10 +247,15 @@ def make_relay(graph: Graph, *, backend: str = "segment",
         adj[split.hub_pos[src_np[dead]], split.hub_pos[dst_np[dead]]] = False
         keep_tail = keep_tail & mask_np
     arrays["hub_ids"] = torch.from_numpy(split.hub_ids).to(dev)
-    # the hub-hub block lives bit-packed (int32 words); the kernel reads it
-    # as is and the plain version unpacks it per call
+    # the hub-hub block lives bit-packed (int32 words); it is symmetric, so
+    # row p also holds column p, which the kernel's pull reads
     arrays["adj_hh_words"] = pack_bits(torch.from_numpy(adj)).to(dev)
-    if keep_tail.any():
-        arrays["tail_src"] = torch.from_numpy(src_np[keep_tail]).to(dev)
-        arrays["tail_dst"] = torch.from_numpy(dst_np[keep_tail]).to(dev)
+    # the tail is a subsequence of the src-sorted edge list, hence already
+    # in row order: row w holds the tail edges (w, x), and by symmetry
+    # OR over them equals OR over the edges (x, w) that the reference's
+    # push relay reads
+    tail_ptr = np.zeros((v + 1,), np.int64)
+    np.cumsum(np.bincount(src_np[keep_tail], minlength=v), out=tail_ptr[1:])
+    arrays["tail_ptr"] = torch.from_numpy(tail_ptr.astype(np.int32)).to(dev)
+    arrays["tail_col"] = torch.from_numpy(dst_np[keep_tail].astype(np.int32)).to(dev)
     return FrontierEngine(arrays, backend=backend, n_vertices=v, n_edges=e)

@@ -10,8 +10,8 @@ All |R| landmark BFSs run as one level-synchronous program over
 Per level one fused relay carries both messages stacked as ``(2R, V)``:
 *visited* (from every frontier vertex) and *L* (only from frontier
 vertices allowed as path interior: non-landmarks, or the root itself).
-Under ``backend="hybrid"`` the hub block of that relay is the
-``bitmap_expand_packed`` kernel on the card.
+Under ``backend="hybrid"`` that relay is one call of the fused
+``hybrid_relay`` kernel on the card (tail rows and hub block).
 """
 from __future__ import annotations
 

@@ -20,9 +20,9 @@ owns the per-lane device steps:
   certified from two distance fields; the one-sided lane adds one
   distance-bounded full-graph BFS per row (``bfs_depths_batch``).
 
-``backend=`` picks the relay (``segment`` or ``hybrid``); under
-``hybrid`` every relay's hub block is the ``bitmap_expand_packed`` kernel
-on the card.  There is no ``use_pallas`` switch: the device decides.
+``backend=`` picks the relay (``segment``, ``csr`` or ``hybrid``); under
+``hybrid`` every relay is one call of the fused ``hybrid_relay`` kernel on
+the card.  There is no ``use_pallas`` switch: the device decides.
 """
 from __future__ import annotations
 

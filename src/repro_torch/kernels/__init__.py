@@ -3,10 +3,12 @@ PyTorch versions and the dispatch seam (``ops``).
 
 * ``minplus``              — tropical product behind the sketch's d_top
                              (``csrc/minplus.cu``)
-* ``bitmap_expand_packed`` — the hybrid relay's hub-hub block expansion
-                             (``csrc/bitmap_expand_packed.cu``)
+* ``bitmap_expand_packed`` — the hub-hub block expansion over bit-packed
+                             words (``csrc/bitmap_expand_packed.cu``)
 * ``bitmap_expand``        — the same expansion over a dense bool block
                              (``csrc/bitmap_expand.cu``)
+* ``hybrid_relay``         — the hybrid relay in one pass: the tail's CSR
+                             pull and the hub block (``csrc/hybrid_relay.cu``)
 
 Nothing is compiled at import; ``_build`` runs ``nvcc`` on first launch.
 """
@@ -14,10 +16,11 @@ from .ops import (
     LAUNCHES,
     bitmap_expand,
     bitmap_expand_packed,
+    hybrid_relay,
     minplus,
     reset_launches,
     sketch_d_top,
 )
 
-__all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "minplus",
-           "reset_launches", "sketch_d_top"]
+__all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
+           "minplus", "reset_launches", "sketch_d_top"]

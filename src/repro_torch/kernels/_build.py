@@ -9,7 +9,9 @@ Nothing here runs when the package is imported, and nothing falls back:
 a build failure raises with the compiler's output.
 
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where
-it launches its kernel and nowhere else (``kernels.ops.LAUNCHES``).
+it launches its kernel and nowhere else (``kernels.ops.LAUNCHES``).  The
+fused relay's one count per call stands for its two launches (pack, then
+pull).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("minplus", "bitmap_expand_packed", "bitmap_expand")
+SOURCES = ("minplus", "bitmap_expand_packed", "bitmap_expand", "hybrid_relay")
 
 LAUNCHES = {name: 0 for name in SOURCES}
 

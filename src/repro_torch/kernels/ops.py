@@ -3,9 +3,9 @@
 The device of the tensors decides, and there is no ``use_pallas`` switch:
 
 * a CUDA tensor launches the hand-written kernel (``minplus.minplus_cuda``,
-  ``frontier.bitmap_expand_packed_cuda``, ``frontier.bitmap_expand_cuda``)
-  or raises: no ``try`` that falls
-  back, no path that goes on running on the CPU;
+  ``frontier.bitmap_expand_packed_cuda``, ``frontier.bitmap_expand_cuda``,
+  ``frontier.hybrid_relay_cuda``) or raises: no ``try`` that falls back,
+  no path that goes on running on the CPU;
 * a CPU tensor takes the kernel's plain PyTorch version (``ref``).
 
 That is the reference's ``use_pallas=True`` on a TPU (kernel) and its
@@ -23,11 +23,13 @@ from .frontier import (
     bitmap_expand_packed_cuda,
     check_dense_expand_args,
     check_expand_args,
+    check_relay_args,
+    hybrid_relay_cuda,
 )
 from .minplus import check_minplus_args, minplus_cuda
 
-__all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "minplus",
-           "reset_launches", "sketch_d_top"]
+__all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
+           "minplus", "reset_launches", "sketch_d_top"]
 
 
 def reset_launches() -> None:
@@ -70,6 +72,18 @@ def bitmap_expand_packed(frontier: torch.Tensor, adj_words: torch.Tensor, *,
         return bitmap_expand_packed_cuda(frontier, adj_words, n_cols)
     check_expand_args(frontier, adj_words, n_cols)
     return ref.bitmap_expand_packed_ref(frontier, adj_words, n_cols)
+
+
+def hybrid_relay(f: torch.Tensor, tail_ptr: torch.Tensor,
+                 tail_col: torch.Tensor, hub_ids: torch.Tensor,
+                 adj_words: torch.Tensor) -> torch.Tensor:
+    """The hybrid relay, (K, V) bool -> (K, V) bool: the tail's CSR pull
+    ORed with the hub block's expansion (``core.frontier.make_relay`` builds
+    the arrays)."""
+    if _on_cuda(f, tail_ptr, tail_col, hub_ids, adj_words):
+        return hybrid_relay_cuda(f, tail_ptr, tail_col, hub_ids, adj_words)
+    check_relay_args(f, tail_ptr, tail_col, hub_ids, adj_words)
+    return ref.hybrid_relay_ref(f, tail_ptr, tail_col, hub_ids, adj_words)
 
 
 def sketch_d_top(lu: torch.Tensor, lv: torch.Tensor,

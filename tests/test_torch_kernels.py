@@ -30,6 +30,7 @@ from repro_torch.kernels.frontier import (
     bitmap_expand_packed_cuda,
     block_shape,
     dense_vector_loads,
+    hybrid_relay_cuda,
 )
 from repro_torch.kernels.minplus import minplus_cuda
 
@@ -192,8 +193,13 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
                              torch.zeros((32, 1), dtype=torch.int32), n_cols=32)
     ops.bitmap_expand(torch.zeros((2, 32), dtype=torch.bool),
                       torch.zeros((32, 8), dtype=torch.bool))
+    i32 = torch.int32
+    ops.hybrid_relay(torch.zeros((2, 4), dtype=torch.bool),
+                     torch.zeros((5,), dtype=i32), torch.zeros((0,), dtype=i32),
+                     torch.zeros((1,), dtype=i32), torch.zeros((1, 1), dtype=i32))
     assert LAUNCHES == before
-    assert set(LAUNCHES) == {"minplus", "bitmap_expand_packed", "bitmap_expand"}
+    assert set(LAUNCHES) == {"minplus", "bitmap_expand_packed", "bitmap_expand",
+                             "hybrid_relay"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -208,11 +214,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         bitmap_expand_cuda(torch.zeros((2, 32), dtype=torch.bool),
                            torch.zeros((32, 8), dtype=torch.bool))
+    i32 = torch.int32
+    with pytest.raises(ValueError, match="CUDA"):
+        hybrid_relay_cuda(torch.zeros((2, 4), dtype=torch.bool),
+                          torch.zeros((5,), dtype=i32), torch.zeros((0,), dtype=i32),
+                          torch.zeros((1,), dtype=i32), torch.zeros((1, 1), dtype=i32))
 
 
-@pytest.mark.parametrize("v,nw,want", [(128, 4, (4, 32)), (16, 1, (1, 128)),
-                                       (2048, 64, (32, 4)), (300000, 1, (1, 1))])
+@pytest.mark.parametrize("v,nw,want", [(128, 4, (8, 2048)), (16, 1, (8, 64)),
+                                       (2048, 64, (8, 0)), (300000, 1, (8, 0))])
 def test_block_shape(v, nw, want):
+    """A warp per frontier row, 8 rows per block; the words are staged in
+    shared memory when they fit in 48 KB, else read through L2 (0)."""
     assert block_shape(v, nw) == want
 
 

@@ -7,8 +7,10 @@ neither JAX nor the JAX package, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Comparisons are exact, with zero tolerance: the min-plus product is
-integer and the frontier expansion boolean.
+integer, the frontier expansion and the relay boolean.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -59,8 +61,11 @@ def test_minplus_kernel_saturates_and_refuses(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,v,w", [(40, 128, 128), (32, 128, 128), (64, 128, 128),
                                    (40, 128, 100), (17, 70, 90), (5, 3000, 40),
-                                   (300, 16, 16)])
+                                   (300, 16, 16), (7, 1, 40), (9, 33, 70),
+                                   (32, 2048, 128), (3, 2048, 2100)])
 def test_bitmap_expand_packed_kernel_matches_plain(cuda_device, k, v, w):
+    """Staged words (V * NW * 4 <= 48 KB) and words read through L2, more
+    than 32 words a row, and an all-False frontier."""
     rng = np.random.default_rng(k + v + w)
     f = torch.from_numpy(rng.random((k, v)) < 0.3).to(cuda_device)
     words = pack_bits(torch.from_numpy(rng.random((v, w)) < 0.1)).to(cuda_device)
@@ -68,6 +73,75 @@ def test_bitmap_expand_packed_kernel_matches_plain(cuda_device, k, v, w):
     got = ops.bitmap_expand_packed(f, words, n_cols=w)
     assert LAUNCHES["bitmap_expand_packed"] == count + 1
     assert torch.equal(got, ref.bitmap_expand_packed_ref(f, words, w))
+    none = ops.bitmap_expand_packed(torch.zeros_like(f), words, n_cols=w)
+    assert not bool(none.any())
+
+
+@functools.lru_cache(maxsize=None)
+def _skewed_graph(n):
+    """A Barabasi-Albert graph: its longest tail rows (hubs and more) take
+    the kernel's warp-per-row path."""
+    from repro_torch.core.graph import barabasi_albert_graph
+
+    return barabasi_albert_graph(n, 3, seed=0, device="cuda")
+
+
+def _gminus(g, n_landmarks=20):
+    from repro_torch.core.graph import select_landmarks
+
+    keep = torch.ones((g.n_vertices,), dtype=torch.bool, device=g.device)
+    keep[torch.from_numpy(select_landmarks(g, n_landmarks)).to(g.device).long()] = False
+    return keep[g.src.long()] & keep[g.dst.long()]
+
+
+def _relay_both(engine, f):
+    a = engine.arrays
+    args = (f, a["tail_ptr"], a["tail_col"], a["hub_ids"], a["adj_hh_words"])
+    count = LAUNCHES["hybrid_relay"]
+    got = ops.hybrid_relay(*args)
+    assert LAUNCHES["hybrid_relay"] == count + 1
+    return got, ref.hybrid_relay_ref(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 40, 65])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [20000, 20001])
+def test_hybrid_relay_kernel_matches_plain(cuda_device, n, masked, k):
+    """On a skewed graph (V % 4 == 0 packs with word loads, else bytes),
+    with and without the G- mask, at every relay width; an all-False
+    frontier relays to nothing."""
+    from repro_torch.core.frontier import make_relay
+    from repro_torch.kernels.frontier import cached_schedule
+
+    g = _skewed_graph(n)
+    eng = make_relay(g, backend="hybrid", edge_mask=_gminus(g) if masked else None)
+    warp_rows, _ = cached_schedule(eng.arrays["tail_ptr"], eng.arrays["hub_ids"])
+    assert warp_rows.shape[0] > eng.arrays["hub_ids"].shape[0]
+    rng = np.random.default_rng(k)
+    f = torch.from_numpy(rng.random((k, n)) < 0.05).to(cuda_device)
+    got, want = _relay_both(eng, f)
+    assert torch.equal(got, want)
+    got, want = _relay_both(eng, torch.zeros_like(f))
+    assert not bool(got.any()) and not bool(want.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hubs", [1, 5, 12, 200, 5000])
+def test_hybrid_relay_kernel_hub_counts(cuda_device, n_hubs):
+    """From one hub to every vertex a hub (an empty tail apart from the
+    self-loop padding), on a padded graph with isolated vertices."""
+    from repro_torch.core.frontier import make_relay
+    from repro_torch.core.graph import barabasi_albert_graph
+
+    g = barabasi_albert_graph(3000, 3, seed=1, pad_vertices_to=3010,
+                              pad_edges_to=18000, device=cuda_device)
+    eng = make_relay(g, backend="hybrid", n_hubs=n_hubs)
+    rng = np.random.default_rng(n_hubs)
+    for k in (1, 32, 40):
+        f = torch.from_numpy(rng.random((k, g.n_vertices)) < 0.1).to(cuda_device)
+        got, want = _relay_both(eng, f)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -86,6 +160,23 @@ def test_bitmap_expand_kernel_matches_plain(cuda_device, r, v, w, density):
     assert torch.equal(got, ref.bitmap_expand_ref(f, adj))
     none = ops.bitmap_expand(torch.zeros_like(f), adj)   # all-False frontier
     assert not bool(none.any())
+
+
+@pytest.mark.cuda
+def test_hybrid_relay_kernel_refuses(cuda_device):
+    from repro_torch.core.frontier import make_relay
+
+    eng = make_relay(_skewed_graph(20000), backend="hybrid")
+    a = eng.arrays
+    args = [a["tail_ptr"], a["tail_col"], a["hub_ids"], a["adj_hh_words"]]
+    f = torch.zeros((4, 20000), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="mixed"):
+        ops.hybrid_relay(f.cpu(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.hybrid_relay(torch.zeros((20000, 4), dtype=torch.bool,
+                                     device=cuda_device).T, *args)
+    with pytest.raises(ValueError, match="int32"):
+        ops.hybrid_relay(f, args[0].long(), *args[1:])
 
 
 @pytest.mark.cuda
