@@ -12,7 +12,11 @@ Phases (each raises on failure; nothing is caught):
 1. the card's ``name, power.limit`` and the CUDA version;
 2. build the kernels (one ``nvcc`` per source, in parallel);
 3. each kernel against its plain version on the card, exact equality,
-   with kernel / plain / library-call times (median of 30 timed runs);
+   with kernel / plain / library-call times (median of 30 timed runs):
+   ``minplus``; ``sketch_batch`` at B in {32, 256}, R in {20, 64}, uint8
+   and uint16 tables, beside the PyTorch ops it replaced (not one call);
+   ``bitmap_expand_packed``; ``bitmap_expand`` beside ``torch.matmul`` on
+   f32 casts and ``torch._int_mm`` (cuBLASLt's int8 GEMM) on the int8 views;
    the fused ``hybrid_relay`` is checked on the real graph once the hybrid
    index exists (after its path's counts are read): on the full-graph and
    the G- engines at K = 1, 32 and 40, against its plain version and
@@ -25,8 +29,13 @@ Phases (each raises on failure; nothing is caught):
    (``block_size = 1 << 21``, so the blocked loop runs), which must give
    the same tables and answers; the launch counters are set to 0 just
    before each backend's run and read just after (hybrid must launch
-   ``minplus`` and ``hybrid_relay``, segment and csr ``minplus`` only);
-5. the dense expansion's path: ``kernels.ops.bitmap_expand_packed`` and
+   ``sketch_batch`` and ``hybrid_relay``, segment and csr ``sketch_batch``
+   only);
+5. the min-plus kernel's path: ``core.sketch.d_top_only`` (one ``minplus``
+   launch and nothing else) on the hybrid index's label rows of the
+   general pairs, which must equal the fused kernel's d_top and the plain
+   version's six fields;
+   the dense expansion's path: ``kernels.ops.bitmap_expand_packed`` and
    ``kernels.ops.bitmap_expand`` (its oracle, on the block unpacked) on the
    hybrid index's real hub block and the landmarks' level-1 and level-2
    frontier rows; it must launch those two and nothing else;
@@ -149,6 +158,89 @@ def measure(name, fns, reps=30, calls=50, profiled=200):
     return {k: d for k, (_, d) in out.items()}
 
 
+def sketch_inputs(rng, b, r, dtype, dev, INF):
+    """(lu, lv, meta_w, meta_dist) on the card, packed into ``dtype`` (the
+    dtype max as the INF sentinel): label rows with 20% INF entries, a
+    random meta graph (weights 1-3 x 2 for uint8, x 50 for uint16) and its
+    APSP, as the labelling would give them."""
+    hi, scale = (400, 50) if dtype == np.uint16 else (40, 2)
+    tabs = []
+    for _ in range(2):
+        x = rng.integers(0, hi, size=(b, r))
+        tabs.append(np.where(rng.random((b, r)) < 0.2, INF, x))
+    w = rng.integers(1, 4, size=(r, r)) * scale
+    w = np.where(rng.random((r, r)) < 0.5, w, INF)
+    w = np.minimum(w, w.T)
+    np.fill_diagonal(w, INF)
+    d = w.copy()
+    np.fill_diagonal(d, 0)
+    for k in range(r):
+        d = np.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+    tabs += [w, np.minimum(d, INF)]
+    sent = np.iinfo(dtype).max
+    return [torch.as_tensor(np.where(x >= INF, sent, x).astype(dtype)).to(dev)
+            for x in tabs]
+
+
+def attaining_pairs(lu, lv, md, INF):
+    """The number of attaining landmark pairs of a batch, summed (the
+    meta-edge test's share of the sketch's operations)."""
+    from repro_torch.core.packing import widen_dist
+
+    lu, lv, md = (widen_dist(t) for t in (lu, lv, md))
+    pi = torch.clamp(lu[:, :, None] + md[None] + lv[:, None, :], max=INF)
+    d_top = pi.amin(dim=(1, 2))
+    att = (pi == d_top[:, None, None]) & (d_top < INF)[:, None, None]
+    return int(att.sum())
+
+
+def check_sketch_batch(dev, ref, INF, rng):
+    """The fused sketch kernel against its plain version (all six fields,
+    exactly) at the serving shape and beyond, with kernel / plain times and
+    those of the PyTorch ops it replaced (the old body of
+    ``compute_sketch_batch``, d_top on the ``minplus`` kernel; not one
+    call) and the bound.  Returns the JSON row (B = 32, R = 20, uint8)."""
+    from repro_torch.kernels.minplus import minplus_cuda
+    from repro_torch.kernels.sketch import sketch_batch_cuda, smem_layout
+
+    row = None
+    for b, r, dtype in [(32, 20, np.uint8), (32, 20, np.uint16),
+                        (256, 20, np.uint8), (256, 20, np.uint16),
+                        (32, 64, np.uint8), (32, 64, np.uint16),
+                        (256, 64, np.uint8), (256, 64, np.uint16)]:
+        lu, lv, mw, md = sketch_inputs(rng, b, r, dtype, dev, INF)
+        got = sketch_batch_cuda(lu, lv, mw, md)
+        want = ref.sketch_batch_ref(lu, lv, mw, md)
+        torch.cuda.synchronize()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        if err != 0 or any(g.dtype != w.dtype for g, w in zip(got, want)):
+            raise AssertionError(f"sketch_batch B={b} R={r} {dtype.__name__}: "
+                                 f"max |kernel - plain| = {err}")
+        n_att = attaining_pairs(lu, lv, md, INF)
+        t = measure(f"sketch_batch B={b} R={r} {dtype.__name__} ({n_att} "
+                    f"attaining pairs, {int(got[3].sum())} meta edges; staged "
+                    f"{smem_layout(r)})", {
+                        "kernel": lambda: sketch_batch_cuda(lu, lv, mw, md),
+                        "plain": lambda: ref.sketch_batch_ref(lu, lv, mw, md),
+                        "PyTorch ops replaced, not one call":
+                            lambda: ref.sketch_batch_ref(lu, lv, mw, md,
+                                                         minplus=minplus_cuda)})
+        elem = np.dtype(dtype).itemsize
+        n_bytes = elem * (2 * b * r + 2 * r * r) + b * (2 * r * 4 + r * r + 12)
+        b_ms, b_by = bound_ms(n_bytes, 3 * r * r * (b + n_att))
+        log(f"  bound {b_ms * 1e3:.4f} us by {b_by} ({n_bytes} bytes)")
+        if (b, r, dtype) == (32, 20, np.uint8):     # a general chunk's sketch
+            row = dict(
+                name="sketch_batch", route="cuda",
+                source="src/repro_torch/kernels/csrc/sketch_batch.cu",
+                replaces="src/repro/kernels/minplus.py:81",
+                max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                pytorch_ops_ms=t["PyTorch ops replaced, not one call"])
+    return row
+
+
 def check_kernels(dev, ref, INF):
     """Phase 3: every kernel against its plain version on the card, exact
     equality; the kernels' JSON rows at the main path's shapes."""
@@ -184,6 +276,8 @@ def check_kernels(dev, ref, INF):
                 replaces="src/repro/kernels/minplus.py:81",
                 max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    rows["sketch_batch"] = check_sketch_batch(dev, ref, INF, rng)
 
     for k, v, n_cols in [(40, 128, 128), (32, 128, 128), (64, 128, 128),
                          (40, 128, 100), (32, 2048, 128)]:
@@ -242,12 +336,23 @@ def check_kernels(dev, ref, INF):
             raise AssertionError("bitmap_expand: all-False frontier expanded")
         ff = f.to(torch.float32)
         aa = adj.to(torch.float32)
+        fns = {"kernel": lambda: bitmap_expand_cuda(f, adj),
+               "plain": lambda: ref.bitmap_expand_ref(f, adj),
+               "torch.matmul on f32": lambda: torch.matmul(ff, aa)}
+        fi, ai = f.view(torch.int8), adj.view(torch.int8)
+        try:
+            counts = torch._int_mm(fi, ai)
+        except RuntimeError as e:
+            log(f"  torch._int_mm refuses ({r},{v})x({v},{w}): "
+                f"{str(e).splitlines()[0][:120]}")
+        else:
+            if not torch.equal(counts > 0, got):
+                raise AssertionError(f"torch._int_mm > 0 disagrees with "
+                                     f"bitmap_expand at ({r},{v})x({v},{w})")
+            fns["torch._int_mm on int8"] = lambda: torch._int_mm(fi, ai)
         what = "all-False frontier " if f_density == 0.0 else ""
         t = measure(f"bitmap_expand {what}({r},{v})x({v},{w}), "
-                    f"{int(got.sum())} of {got.numel()} true", {
-                        "kernel": lambda: bitmap_expand_cuda(f, adj),
-                        "plain": lambda: ref.bitmap_expand_ref(f, adj),
-                        "torch.matmul on f32": lambda: torch.matmul(ff, aa)})
+                    f"{int(got.sum())} of {got.numel()} true", fns)
         n_bytes = r * v + v * w + r * w
         b_ms, b_by = bound_ms(n_bytes, 2 * r * v * w, INT8_TC_OPS_PER_S)
         log(f"  bound {b_ms * 1e3:.4f} us by {b_by} ({n_bytes} bytes)")
@@ -258,7 +363,8 @@ def check_kernels(dev, ref, INF):
                 replaces="src/repro/kernels/frontier.py:79",
                 max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
                 bound_ms=b_ms, bound_by=b_by,
-                library_ms=t["torch.matmul on f32"])
+                library_ms=t["torch.matmul on f32"],
+                int_mm_ms=t.get("torch._int_mm on int8"))
     return rows
 
 
@@ -533,6 +639,38 @@ def same_as_hybrid(idx_h, res_h, idx_b, res_b, backend):
     log(f"hybrid == {backend} on tables and on all {len(res_h)} answers")
 
 
+def sketch_oracle(ops, ref, idx_h, us, vs):
+    """The min-plus kernel's path: ``core.sketch.d_top_only`` (two chained
+    min-plus contractions, the first on the ``minplus`` kernel) on the
+    hybrid index's label rows of the general pairs, against the fused
+    ``sketch_batch`` kernel's d_top and the plain version's six fields.  The
+    counters are set to 0 just before the ``d_top_only`` call and read just
+    after; the comparison's own launches come after that."""
+    from repro_torch.core import sketch
+    from repro_torch.core.packing import take
+
+    lab = idx_h.packed.label_dist
+    lu = take(lab, torch.as_tensor(us, device=idx_h.device).long())
+    lv = take(lab, torch.as_tensor(vs, device=idx_h.device).long())
+    mw, md = idx_h.packed.meta_w, idx_h.packed.meta_dist
+    ops.reset_launches()
+    d_top = sketch.d_top_only(lu, lv, md)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    fused = ops.sketch_batch(lu, lv, mw, md)
+    plain = ref.sketch_batch_ref(lu, lv, mw, md)
+    torch.cuda.synchronize()
+    if not (torch.equal(d_top, fused[0]) and torch.equal(d_top, plain[0])
+            and all(torch.equal(a, b) for a, b in zip(fused, plain))):
+        raise AssertionError("d_top_only, sketch_batch and its plain version "
+                             "disagree on the real label rows")
+    log(f"sketch oracle: d_top_only (minplus) == sketch_batch d_top == plain "
+        f"on {lu.shape[0]} general pairs ({lab.dtype} rows, R = {lu.shape[1]}; "
+        f"{int((d_top < 1 << 20).sum())} finite, {int(fused[3].sum())} meta "
+        f"edges), all six fields equal; launches {counts}")
+    return counts
+
+
 def dense_oracle(core, ops, ref, idx_h):
     """The dense expansion's path: ``ops.bitmap_expand_packed`` over the
     hybrid index's hub block and ``ops.bitmap_expand`` over the same block
@@ -695,9 +833,13 @@ def main() -> int:
     same_as_hybrid(idx_h, res_h, idx_c, res_c, "csr")
     time_lanes(idx_c, ops, us, vs, lanes, chunk)
 
+    general = lanes["general"]
+    launches["sketch_oracle"] = sketch_oracle(ops, ref, idx_h, us[general],
+                                              vs[general])
     launches["dense_oracle"] = dense_oracle(core, ops, ref, idx_h)
-    expect = {"hybrid": ("minplus", "hybrid_relay"),
-              "segment": ("minplus",), "csr": ("minplus",),
+    expect = {"hybrid": ("sketch_batch", "hybrid_relay"),
+              "segment": ("sketch_batch",), "csr": ("sketch_batch",),
+              "sketch_oracle": ("minplus",),
               "dense_oracle": ("bitmap_expand_packed", "bitmap_expand")}
     for path, names in expect.items():
         for name, count in launches[path].items():
@@ -739,7 +881,8 @@ def main() -> int:
 
     # phase 8: results
     kernels = []
-    for name, main_path in (("minplus", "hybrid"),
+    for name, main_path in (("minplus", "sketch_oracle"),
+                            ("sketch_batch", "hybrid"),
                             ("hybrid_relay", "hybrid"),
                             ("bitmap_expand_packed", "dense_oracle"),
                             ("bitmap_expand", "dense_oracle")):

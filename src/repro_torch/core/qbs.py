@@ -12,8 +12,8 @@ deduplicated pairs (trivial, landmark pair, one-sided landmark, general)
 and ``serving.service`` runs the lanes in fixed-width chunks.  This module
 owns the per-lane device steps:
 
-* ``serve_step`` — the general lane: label gather -> sketch (d_top on the
-  ``minplus`` kernel on the card) -> batched guided search -> edge-mask
+* ``serve_step`` — the general lane: label gather -> sketch (the fused
+  ``sketch_batch`` kernel on the card) -> batched guided search -> edge-mask
   symmetrization through the reverse-edge map.
 * ``landmark_pair_step`` / ``landmark_onesided_step`` — the landmark lanes:
   distances from the label rows and the meta-graph APSP, every SPG edge

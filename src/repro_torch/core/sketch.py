@@ -5,11 +5,12 @@ A sketch for SPG(u, v) is the set of landmark paths attaining
 
     d_top(u,v) = min_{r,r'} ( delta_ur + d_M(r, r') + delta_r'v )     (Eq. 3)
 
-d_top goes through ``kernels.ops.sketch_d_top``, two chained min-plus
-contractions: the hand-written ``minplus`` kernel on the card (what the
-reference does with ``use_pallas=True``), its plain version on the CPU.
-The structural part (attaining pairs, meta edges on their meta shortest
-paths) stays as masked dense ops over R^2 / R^4, tiny at |R| = 20.
+``compute_sketch_batch`` is one ``kernels.ops.sketch_batch`` call: on the
+card the fused ``sketch_batch`` kernel computes d_top (the min-plus
+contraction the reference runs on its Pallas kernel with
+``use_pallas=True``) and the whole sketch in one launch; on the CPU its
+plain version (``kernels.ref.sketch_batch_ref``) does.  ``d_top_only``
+keeps the two chained min-plus contractions on the ``minplus`` kernel.
 """
 from __future__ import annotations
 
@@ -33,49 +34,11 @@ class SketchBatch(NamedTuple):
     d_star_v: torch.Tensor   # (B,)
 
 
-def _budget(side_land: torch.Tensor) -> torch.Tensor:
-    b = torch.where(side_land < INF, side_land - 1, -1).amax(dim=1)
-    return torch.clamp(b, min=0).to(torch.int32)
-
-
 def compute_sketch_batch(lu: torch.Tensor, lv: torch.Tensor,
                          meta_w: torch.Tensor,
                          meta_dist: torch.Tensor) -> SketchBatch:
     """Sketches for rows ``lu``/``lv`` ``(B, R)``, packed or int32."""
-    lu = widen_dist(lu)
-    lv = widen_dist(lv)
-    meta_w = widen_dist(meta_w)
-    meta_dist = widen_dist(meta_dist)
-
-    # pi[b, r, r'] = delta_ur + d_M(r,r') + delta_r'v  (clamped to INF)
-    pi = torch.clamp(lu[:, :, None] + meta_dist[None, :, :] + lv[:, None, :],
-                     max=INF)
-    # Eq. 3 on the min-plus kernel (min is monotone, so clamping after the
-    # reduction matches the clamped-pi reduction)
-    d_top = torch.clamp(ops.sketch_d_top(lu.contiguous(), lv,
-                                         meta_dist.contiguous()), max=INF)
-    have = d_top < INF
-    att = (pi == d_top[:, None, None]) & have[:, None, None]   # attaining pairs
-
-    du_land = torch.where(att.any(dim=2), lu, INF)
-    dv_land = torch.where(att.any(dim=1), lv, INF)
-
-    # meta edge (i, j) is in the sketch iff it lies on a shortest meta path
-    # between some attaining pair (r, r'):
-    #   d_M(r,i) + w(i,j) + d_M(j,r') == d_M(r,r')
-    cost = (meta_dist[:, :, None, None] + meta_w[None, :, :, None]
-            + meta_dist.T[None, None, :, :])                    # (R, i, j, R')
-    on_path = (cost == meta_dist[:, None, None, :]) \
-        & (meta_w < INF)[None, :, :, None]
-    # meta_edge[b,i,j] = any_{r,r'} att[b,r,r'] & on_path[r,i,j,r'] as a float
-    # count (at most R^2, exact in f32; CUDA has no integer einsum)
-    meta_edge = torch.einsum("brs,rijs->bij", att.to(torch.float32),
-                             on_path.to(torch.float32)) > 0.5
-
-    return SketchBatch(d_top=d_top.to(torch.int32),
-                       du_land=du_land.to(torch.int32),
-                       dv_land=dv_land.to(torch.int32), meta_edge=meta_edge,
-                       d_star_u=_budget(du_land), d_star_v=_budget(dv_land))
+    return SketchBatch(*ops.sketch_batch(lu, lv, meta_w, meta_dist))
 
 
 def d_top_only(lu: torch.Tensor, lv: torch.Tensor, meta_dist: torch.Tensor,

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels for the QbS hot spots, with their plain
 PyTorch versions and the dispatch seam (``ops``).
 
-* ``minplus``              — tropical product behind the sketch's d_top
+* ``minplus``              — tropical product behind ``d_top_only``
                              (``csrc/minplus.cu``)
+* ``sketch_batch``         — d_top and the whole sketch of a query batch in
+                             one launch (``csrc/sketch_batch.cu``)
 * ``bitmap_expand_packed`` — the hub-hub block expansion over bit-packed
                              words (``csrc/bitmap_expand_packed.cu``)
 * ``bitmap_expand``        — the same expansion over a dense bool block
@@ -19,8 +21,9 @@ from .ops import (
     hybrid_relay,
     minplus,
     reset_launches,
+    sketch_batch,
     sketch_d_top,
 )
 
 __all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
-           "minplus", "reset_launches", "sketch_d_top"]
+           "minplus", "reset_launches", "sketch_batch", "sketch_d_top"]

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("minplus", "bitmap_expand_packed", "bitmap_expand", "hybrid_relay")
+SOURCES = ("minplus", "sketch_batch", "bitmap_expand_packed", "bitmap_expand",
+           "hybrid_relay")
 
 LAUNCHES = {name: 0 for name in SOURCES}
 

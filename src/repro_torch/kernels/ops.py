@@ -3,9 +3,10 @@
 The device of the tensors decides, and there is no ``use_pallas`` switch:
 
 * a CUDA tensor launches the hand-written kernel (``minplus.minplus_cuda``,
-  ``frontier.bitmap_expand_packed_cuda``, ``frontier.bitmap_expand_cuda``,
-  ``frontier.hybrid_relay_cuda``) or raises: no ``try`` that falls back,
-  no path that goes on running on the CPU;
+  ``sketch.sketch_batch_cuda``, ``frontier.bitmap_expand_packed_cuda``,
+  ``frontier.bitmap_expand_cuda``, ``frontier.hybrid_relay_cuda``) or
+  raises: no ``try`` that falls back, no path that goes on running on the
+  CPU;
 * a CPU tensor takes the kernel's plain PyTorch version (``ref``).
 
 That is the reference's ``use_pallas=True`` on a TPU (kernel) and its
@@ -27,9 +28,10 @@ from .frontier import (
     hybrid_relay_cuda,
 )
 from .minplus import check_minplus_args, minplus_cuda
+from .sketch import check_sketch_args, sketch_batch_cuda
 
 __all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
-           "minplus", "reset_launches", "sketch_d_top"]
+           "minplus", "reset_launches", "sketch_batch", "sketch_d_top"]
 
 
 def reset_launches() -> None:
@@ -84,6 +86,17 @@ def hybrid_relay(f: torch.Tensor, tail_ptr: torch.Tensor,
         return hybrid_relay_cuda(f, tail_ptr, tail_col, hub_ids, adj_words)
     check_relay_args(f, tail_ptr, tail_col, hub_ids, adj_words)
     return ref.hybrid_relay_ref(f, tail_ptr, tail_col, hub_ids, adj_words)
+
+
+def sketch_batch(lu: torch.Tensor, lv: torch.Tensor, meta_w: torch.Tensor,
+                 meta_dist: torch.Tensor):
+    """The sketches of a query batch, rows ``(B, R)`` packed or int32:
+    ``(d_top, du_land, dv_land, meta_edge, d_star_u, d_star_v)`` in the
+    order of ``core.sketch.SketchBatch``."""
+    if _on_cuda(lu, lv, meta_w, meta_dist):
+        return sketch_batch_cuda(lu, lv, meta_w, meta_dist)
+    check_sketch_args(lu, lv, meta_w, meta_dist)
+    return ref.sketch_batch_ref(lu, lv, meta_w, meta_dist)
 
 
 def sketch_d_top(lu: torch.Tensor, lv: torch.Tensor,

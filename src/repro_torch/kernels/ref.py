@@ -5,13 +5,61 @@ from __future__ import annotations
 
 import torch
 
-from ..core.packing import unpack_bits
+from ..core.graph import INF
+from ..core.packing import unpack_bits, widen_dist
 
 
 def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Min-plus (tropical) product: C[m, n] = min_k (A[m, k] + B[k, n]).
     int32 inputs with INF sentinels (INF + INF stays far below 2**31)."""
     return (a[:, :, None] + b[None, :, :]).amin(dim=1)
+
+
+def _budget(side_land: torch.Tensor) -> torch.Tensor:
+    b = torch.where(side_land < INF, side_land - 1, -1).amax(dim=1)
+    return torch.clamp(b, min=0).to(torch.int32)
+
+
+def sketch_batch_ref(lu: torch.Tensor, lv: torch.Tensor, meta_w: torch.Tensor,
+                     meta_dist: torch.Tensor, minplus=minplus_ref):
+    """Sketches (Eq. 3, Definition 4.5) for rows ``lu``/``lv`` ``(B, R)``,
+    packed or int32: ``(d_top, du_land, dv_land, meta_edge, d_star_u,
+    d_star_v)`` in the order of ``core.sketch.SketchBatch``.  d_top runs
+    through ``minplus`` (the plain version by default), the structural part
+    as masked dense ops over R^2 / R^4."""
+    lu = widen_dist(lu)
+    lv = widen_dist(lv)
+    meta_w = widen_dist(meta_w)
+    meta_dist = widen_dist(meta_dist)
+
+    # pi[b, r, r'] = delta_ur + d_M(r,r') + delta_r'v  (clamped to INF)
+    pi = torch.clamp(lu[:, :, None] + meta_dist[None, :, :] + lv[:, None, :],
+                     max=INF)
+    # Eq. 3 as two chained min-plus contractions (min is monotone, so
+    # clamping after the reduction matches the clamped-pi reduction)
+    t = minplus(lu.contiguous(), meta_dist.contiguous())        # (B, R)
+    d_top = torch.clamp((t + lv).amin(dim=1), max=INF)
+    have = d_top < INF
+    att = (pi == d_top[:, None, None]) & have[:, None, None]   # attaining pairs
+
+    du_land = torch.where(att.any(dim=2), lu, INF)
+    dv_land = torch.where(att.any(dim=1), lv, INF)
+
+    # meta edge (i, j) is in the sketch iff it lies on a shortest meta path
+    # between some attaining pair (r, r'):
+    #   d_M(r,i) + w(i,j) + d_M(j,r') == d_M(r,r')
+    cost = (meta_dist[:, :, None, None] + meta_w[None, :, :, None]
+            + meta_dist.T[None, None, :, :])                    # (R, i, j, R')
+    on_path = (cost == meta_dist[:, None, None, :]) \
+        & (meta_w < INF)[None, :, :, None]
+    # meta_edge[b,i,j] = any_{r,r'} att[b,r,r'] & on_path[r,i,j,r'] as a float
+    # count (at most R^2, exact in f32; CUDA has no integer einsum)
+    meta_edge = torch.einsum("brs,rijs->bij", att.to(torch.float32),
+                             on_path.to(torch.float32)) > 0.5
+
+    return (d_top.to(torch.int32), du_land.to(torch.int32),
+            dv_land.to(torch.int32), meta_edge, _budget(du_land),
+            _budget(dv_land))
 
 
 def bitmap_expand_ref(frontier: torch.Tensor,

@@ -33,6 +33,7 @@ from repro_torch.kernels.frontier import (
     hybrid_relay_cuda,
 )
 from repro_torch.kernels.minplus import minplus_cuda
+from repro_torch.kernels.sketch import sketch_batch_cuda
 
 
 def _rand_dist(rng, shape):
@@ -197,9 +198,11 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     ops.hybrid_relay(torch.zeros((2, 4), dtype=torch.bool),
                      torch.zeros((5,), dtype=i32), torch.zeros((0,), dtype=i32),
                      torch.zeros((1,), dtype=i32), torch.zeros((1, 1), dtype=i32))
+    ops.sketch_batch(a, a, torch.zeros((3, 3), dtype=i32),
+                     torch.zeros((3, 3), dtype=i32))
     assert LAUNCHES == before
-    assert set(LAUNCHES) == {"minplus", "bitmap_expand_packed", "bitmap_expand",
-                             "hybrid_relay"}
+    assert set(LAUNCHES) == {"minplus", "sketch_batch", "bitmap_expand_packed",
+                             "bitmap_expand", "hybrid_relay"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -215,6 +218,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bitmap_expand_cuda(torch.zeros((2, 32), dtype=torch.bool),
                            torch.zeros((32, 8), dtype=torch.bool))
     i32 = torch.int32
+    with pytest.raises(ValueError, match="CUDA"):
+        sketch_batch_cuda(a, a, torch.zeros((3, 3), dtype=i32),
+                          torch.zeros((3, 3), dtype=i32))
     with pytest.raises(ValueError, match="CUDA"):
         hybrid_relay_cuda(torch.zeros((2, 4), dtype=torch.bool),
                           torch.zeros((5,), dtype=i32), torch.zeros((0,), dtype=i32),
@@ -239,3 +245,155 @@ def test_dense_vector_loads_needs_16_byte_rows_and_bases():
     assert not dense_vector_loads(f, torch.zeros((128, 77), dtype=torch.bool))
     shifted = torch.zeros(128 * 128 + 1, dtype=torch.bool)[1:].view(128, 128)
     assert shifted.is_contiguous() and not dense_vector_loads(f, shifted)
+
+
+# A numpy model of csrc/bitmap_expand.cu's data movement: the staged tiles,
+# the __byte_perm transpose of the adjacency tile, the ldmatrix.x4 fragments,
+# the m16n8k32 s8 MMA, the early exit and the split of V over a cluster
+# whose blocks OR their per-output bits.  The kernel runs only on the card;
+# this holds its layout to the reference here.
+_TM, _TN, _TK, _PITCH, _SPLIT_MAX = 64, 32, 128, 144, 8
+
+
+def _byte_perm(x, y, sel):
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
+          [(y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 0xF] << (8 * i)
+    return out
+
+
+def _bytes_to_bits(x):
+    x = x | (x >> 4)
+    x = x | (x >> 2)
+    x = x | (x >> 1)
+    return x & 0x01010101
+
+
+def _ldmatrix_x4(words, rows, cols):
+    """Four 8x8 b16 matrices; lane l gives the row address of matrix l // 8
+    (``rows``, ``cols`` in bytes) and gets, from each matrix, the 4 bytes of
+    its row l // 4 at byte 4 * (l % 4)."""
+    lanes = np.arange(32)
+    out = np.zeros((32, 4), np.uint32)
+    for m in range(4):
+        src = m * 8 + lanes // 4
+        out[:, m] = words[rows[src], (cols[src] + 4 * (lanes % 4)) // 4]
+    return out
+
+
+def _s8(regs):
+    return regs.astype("<u4").view(np.int8).reshape(*regs.shape, 4).astype(np.int64)
+
+
+def _mma(acc, a, b0, b1):
+    """acc[lane, 4] += A (16 x 32) @ B (32 x 8) from the s8 fragments."""
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    av, bv0, bv1 = _s8(a), _s8(b0), _s8(b1)
+    for i in range(4):
+        A[g, 4 * t + i] = av[:, 0, i]
+        A[g + 8, 4 * t + i] = av[:, 1, i]
+        A[g, 16 + 4 * t + i] = av[:, 2, i]
+        A[g + 8, 16 + 4 * t + i] = av[:, 3, i]
+        B[4 * t + i, g] = bv0[:, i]
+        B[16 + 4 * t + i, g] = bv1[:, i]
+    C = A @ B
+    acc += np.stack([C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t],
+                     C[g + 8, 2 * t + 1]], axis=1)
+
+
+def _expand_block(f, adj, m0, n0, k_first, n_chunks):
+    """One block's counts > 0 as (TM, TN) bools, its range of V walked in
+    TK stages with the early exit."""
+    r_n, v_n = f.shape
+    w_n = adj.shape[1]
+    acc = np.zeros((4, 32, 4, 4), np.int64)          # warp, lane, n8 tile, c
+    lanes = np.arange(32)
+    g, tig = lanes // 4, lanes % 4
+    rows = m0 + np.arange(4)[:, None, None, None] * 16 + g[None, :, None, None] \
+        + (np.arange(4)[None, None, None, :] >> 1) * 8
+    cols = n0 + np.arange(4)[None, None, :, None] * 8 + tig[None, :, None, None] * 2 \
+        + (np.arange(4)[None, None, None, :] & 1)
+    valid = (rows < r_n) & (cols < w_n)
+    for kt in range(n_chunks):
+        k0 = (k_first + kt) * _TK
+        a_s = np.zeros((_TM, _PITCH), np.uint8)
+        fr = f[m0:m0 + _TM, k0:k0 + _TK]
+        a_s[:fr.shape[0], :fr.shape[1]] = fr
+        b_s = np.zeros((_TK, _TN), np.uint8)
+        ad = adj[k0:k0 + _TK, n0:n0 + _TN]
+        b_s[:ad.shape[0], :ad.shape[1]] = ad
+        bw = b_s.view("<u4").astype(np.uint32)         # (TK, TN / 4)
+        bt = np.zeros((_TN, _PITCH // 4), np.uint32)
+        for kg in range(_TK // 4):
+            a, b, c, d = (_bytes_to_bits(bw[4 * kg + i]) for i in range(4))
+            lo, hi = _byte_perm(a, b, 0x5140), _byte_perm(a, b, 0x7362)
+            clo, chi = _byte_perm(c, d, 0x5140), _byte_perm(c, d, 0x7362)
+            for i, w in enumerate((_byte_perm(lo, clo, 0x5410), _byte_perm(lo, clo, 0x7632),
+                                   _byte_perm(hi, chi, 0x5410), _byte_perm(hi, chi, 0x7632))):
+                bt[4 * np.arange(_TN // 4) + i, kg] = w
+        aw = a_s.view("<u4").astype(np.uint32)
+        for warp in range(4):
+            if m0 + warp * 16 >= r_n or n0 >= w_n:
+                continue
+            a_row = warp * 16 + (lanes & 7) + ((lanes >> 3) & 1) * 8
+            a_col = (lanes >> 4) * 16
+            b_row = (lanes & 7) + (lanes >> 4) * 8
+            b_col = ((lanes >> 3) & 1) * 16
+            for kk in range(0, _TK, 32):
+                fa = _bytes_to_bits(_ldmatrix_x4(aw, a_row, a_col + kk))
+                b01 = _ldmatrix_x4(bt, b_row, b_col + kk)
+                b23 = _ldmatrix_x4(bt, 16 + b_row, b_col + kk)
+                for t, (bb, h) in enumerate(((b01, 0), (b01, 2), (b23, 0), (b23, 2))):
+                    sub = acc[warp, :, t, :]
+                    _mma(sub, fa, bb[:, h], bb[:, h + 1])
+                    acc[warp, :, t, :] = sub
+        if ((acc > 0) | ~valid).all():                   # the early exit
+            break
+    hit = np.zeros((_TM, _TN), bool)
+    hit[rows - m0, cols - n0] = acc > 0
+    return hit
+
+
+def _expand_model(f, adj, n_sm=132):
+    r_n, v_n = f.shape
+    w_n = adj.shape[1]
+    gx, gy = -(-w_n // _TN), -(-r_n // _TM)
+    chunks = -(-v_n // _TK)
+    split = min(_SPLIT_MAX, chunks, max(1, -(-2 * n_sm // (gx * gy))))
+    per_block = -(-chunks // split)
+    split = -(-chunks // per_block)
+    out = np.full((r_n, w_n), 7, np.uint8)              # 7: never written
+    for by in range(gy):
+        for bx in range(gx):
+            m0, n0 = by * _TM, bx * _TN
+            hits = [_expand_block(f, adj, m0, n0, z * per_block,
+                                  min(chunks - z * per_block, per_block))
+                    for z in range(split)]
+            for q in range(split):                       # block q's rows
+                for row in range(q, _TM, split):
+                    if m0 + row < r_n:
+                        word = np.any([h[row] for h in hits], axis=0)
+                        n = min(_TN, w_n - n0)
+                        out[m0 + row, n0:n0 + n] = word[:n]
+    return out, split
+
+
+@pytest.mark.parametrize("r,v,w,want_split", [(17, 33, 65, 1), (40, 128, 128, 1),
+                                              (70, 300, 33, 3), (40, 1000, 70, 8),
+                                              (3, 2100, 5, 6)])
+def test_bitmap_expand_kernel_model(r, v, w, want_split):
+    """Bool bytes of 0, 1, 2 and 255; V split over 1 to 8 blocks."""
+    rng = np.random.default_rng(r + v + w)
+    vals = np.array([0, 1, 2, 255], np.uint8)
+    fb = vals[rng.choice(4, size=(r, v), p=[0.9, 0.04, 0.03, 0.03])]
+    ab = vals[rng.choice(4, size=(v, w), p=[0.96, 0.02, 0.01, 0.01])]
+    got, split = _expand_model(fb, ab)
+    assert split == want_split
+    want = np.asarray(j_expand(jnp.asarray(fb != 0), jnp.asarray(ab != 0),
+                               interpret=True))
+    assert np.array_equal(got, want.astype(np.uint8))

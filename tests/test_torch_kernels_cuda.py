@@ -6,8 +6,8 @@ neither JAX nor the JAX package, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Comparisons are exact, with zero tolerance: the min-plus product is
-integer, the frontier expansion and the relay boolean.
+Comparisons are exact, with zero tolerance: the min-plus product and the
+sketch are integer, the frontier expansion and the relay boolean.
 """
 import functools
 
@@ -148,7 +148,8 @@ def test_hybrid_relay_kernel_hub_counts(cuda_device, n_hubs):
 @pytest.mark.parametrize("r,v,w", [(1, 1, 1), (8, 128, 128), (20, 100, 100),
                                    (20, 257, 257), (3, 300, 300), (64, 512, 512),
                                    (40, 128, 128), (17, 70, 90), (33, 1000, 5),
-                                   (64, 2048, 2048)])
+                                   (64, 2048, 2048), (17, 33, 65),
+                                   (130, 4099, 257)])
 @pytest.mark.parametrize("density", [0.0, 0.02, 0.5])
 def test_bitmap_expand_kernel_matches_plain(cuda_device, r, v, w, density):
     rng = np.random.default_rng(r + v + w)
@@ -229,3 +230,163 @@ def test_bitmap_expand_kernel_unaligned_bases(cuda_device):
     want = ref.bitmap_expand_ref(f, adj)
     assert torch.equal(ops.bitmap_expand(f, adj), want)
     assert torch.equal(ops.bitmap_expand(f, adj_off), want)
+
+
+def _np_meta_tables(rng, r, kind, scale):
+    """int32 (meta_w, meta_dist): a random meta graph and its APSP (with
+    the landmarks in two components for ``two_components``), or arbitrary
+    asymmetric tables."""
+    if kind == "asymmetric":
+        w = rng.integers(1, 3 * scale + 1, size=(r, r))
+        d = rng.integers(0, 3 * scale + 1, size=(r, r))
+        return (np.where(rng.random((r, r)) < 0.3, INF, w).astype(np.int32),
+                np.where(rng.random((r, r)) < 0.15, INF, d).astype(np.int32))
+    w = rng.integers(1, 4, size=(r, r)) * scale
+    w = np.where(rng.random((r, r)) < 0.5, w, INF)
+    if kind == "two_components":
+        side = np.arange(r) < (r + 1) // 2
+        w = np.where(side[:, None] == side[None, :], w, INF)
+    w = np.minimum(w, w.T)
+    np.fill_diagonal(w, INF)
+    d = np.minimum(w, INF)
+    np.fill_diagonal(d, 0)
+    for k in range(r):
+        d = np.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+    return w.astype(np.int32), np.minimum(d, INF).astype(np.int32)
+
+
+def _sketch_inputs(rng, b, r, dtype, kind="apsp"):
+    """(lu, lv, meta_w, meta_dist) on the card, packed into ``dtype``
+    (sentinel = dtype max) or int32; 20% INF entries and some all-INF rows."""
+    hi, scale = (400, 50) if dtype == "uint16" else (40, 2)
+    tabs = []
+    for _ in range(2):
+        x = rng.integers(0, hi, size=(b, r))
+        x = np.where(rng.random((b, r)) < 0.2, INF, x)
+        x[rng.random(b) < 0.1] = INF
+        tabs.append(x)
+    tabs += _np_meta_tables(rng, r, kind, scale)
+    out = []
+    for x in tabs:
+        if dtype != "int32":
+            x = np.where(x >= INF, np.iinfo(dtype).max, x).astype(dtype)
+        out.append(torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)))
+    return [t.to("cuda") for t in out]
+
+
+def _sketch_both(*args):
+    count = LAUNCHES["sketch_batch"]
+    got = ops.sketch_batch(*args)
+    assert LAUNCHES["sketch_batch"] == count + 1
+    want = ref.sketch_batch_ref(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 32])
+@pytest.mark.parametrize("r", [1, 2, 5, 20, 33, 64, 130])
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int32"])
+def test_sketch_batch_kernel_matches_plain(cuda_device, dtype, r, b):
+    """Tables staged in shared memory (R = 64 and 130 above 48 KB)."""
+    from repro_torch.kernels.sketch import smem_layout
+
+    assert smem_layout(r)[0]
+    rng = np.random.default_rng(100 * r + b)
+    _sketch_both(*_sketch_inputs(rng, b, r, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int32"])
+def test_sketch_batch_kernel_unstaged(cuda_device, dtype):
+    """R = 170: the tables are read through L2 and the attaining-pair
+    bitmap lives in global scratch."""
+    from repro_torch.kernels.sketch import smem_layout
+
+    assert not smem_layout(170)[0]
+    rng = np.random.default_rng(170)
+    _sketch_both(*_sketch_inputs(rng, 5, 170, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["two_components", "asymmetric"])
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int32"])
+def test_sketch_batch_kernel_table_kinds(cuda_device, dtype, kind):
+    """Unreachable landmark pairs (INF meta entries, d_top == INF, empty
+    sketches) and arbitrary tables."""
+    rng = np.random.default_rng(len(kind) + len(dtype))
+    lu, lv, mw, md = _sketch_inputs(rng, 32, 20, dtype, kind)
+    got = _sketch_both(lu, lv, mw, md)
+    if kind == "two_components":
+        assert bool((got[0] == INF).any())
+
+
+@pytest.mark.cuda
+def test_sketch_batch_kernel_refuses(cuda_device):
+    lu, lv, mw, md = _sketch_inputs(np.random.default_rng(0), 4, 5, "uint8")
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.sketch_batch(lu, lv, mw.to(torch.int32), md)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.sketch_batch(*(t.to(torch.int64) for t in (lu, lv, mw, md)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sketch_batch(lu, lv, mw.T, md)
+    with pytest.raises(ValueError, match="mixed"):
+        ops.sketch_batch(lu.cpu(), lv, mw, md)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v,w", [(40, 128, 128), (17, 33, 65), (64, 2048, 2048)])
+def test_bitmap_expand_kernel_bool_bytes(cuda_device, r, v, w):
+    """Bool bytes of 2 and 255 (made through a uint8 view) count as True:
+    a 255 is -1 as s8 and must not cancel a count."""
+    rng = np.random.default_rng(r + v)
+    vals = np.array([0, 1, 2, 255], np.uint8)
+    fb = vals[rng.choice(4, size=(r, v), p=[0.85, 0.05, 0.05, 0.05])]
+    ab = vals[rng.choice(4, size=(v, w), p=[0.94, 0.02, 0.02, 0.02])]
+    f = torch.from_numpy(fb).to(cuda_device).view(torch.bool)
+    adj = torch.from_numpy(ab).to(cuda_device).view(torch.bool)
+    want = ref.bitmap_expand_ref(torch.from_numpy(fb != 0).to(cuda_device),
+                                 torch.from_numpy(ab != 0).to(cuda_device))
+    got = ops.bitmap_expand(f, adj)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v,w", [(40, 128, 128), (64, 2048, 2048), (130, 4099, 257)])
+def test_bitmap_expand_kernel_saturates(cuda_device, r, v, w):
+    """An all-True frontier over an adjacency whose first row is all True:
+    every block's outputs are true after its first stage and the block stops
+    early; the rest of K holds random bits."""
+    rng = np.random.default_rng(v)
+    f = torch.ones((r, v), dtype=torch.bool, device=cuda_device)
+    a = rng.random((v, w)) < 0.01
+    a[0] = True
+    adj = torch.from_numpy(a).to(cuda_device)
+    got = ops.bitmap_expand(f, adj)
+    assert bool(got.all())
+    assert torch.equal(got, ref.bitmap_expand_ref(f, adj))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v,w", [(40, 128, 128), (64, 2048, 2048), (17, 48, 64)])
+@pytest.mark.parametrize("which", ["frontier", "adjacency", "both"])
+def test_bitmap_expand_kernel_bases_off_by_one(cuda_device, r, v, w, which):
+    """16-byte row pitches from bases 1 byte past an aligned address take
+    the byte-load staging and give the same bits."""
+    from repro_torch.kernels.frontier import dense_vector_loads
+
+    def shifted(x):
+        buf = torch.zeros(x.numel() + 1, dtype=torch.bool, device=cuda_device)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    rng = np.random.default_rng(r * v + w)
+    f = torch.from_numpy(rng.random((r, v)) < 0.1).to(cuda_device)
+    adj = torch.from_numpy(rng.random((v, w)) < 0.05).to(cuda_device)
+    want = ref.bitmap_expand_ref(f, adj)
+    f_off = shifted(f) if which != "adjacency" else f
+    adj_off = shifted(adj) if which != "frontier" else adj
+    assert dense_vector_loads(f, adj) and not dense_vector_loads(f_off, adj_off)
+    assert torch.equal(ops.bitmap_expand(f_off, adj_off), want)
