@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, drive the main path
 (``QbSIndex.build`` -> ``query_batch``) at full size on every relay backend,
-the dense expansion's path, the baselines and the serving CLI, and check
-the answers.
+the dense expansion's path, the live serving tier (stream, replicas,
+metrics), the epoch-versioned edge updates, the baselines and the serving
+CLI, and check the answers.
 
     python3 chip_smoke.py                      # 1.1 M-vertex BA graph, R = 20
     python3 chip_smoke.py --n-vertices 100000  # a quicker rehearsal
@@ -39,6 +40,21 @@ Phases (each raises on failure; nothing is caught):
    ``kernels.ops.bitmap_expand`` (its oracle, on the block unpacked) on the
    hybrid index's real hub block and the landmarks' level-1 and level-2
    frontier rows; it must launch those two and nothing else;
+   then, on the hybrid index, each with the counters set to 0 just before
+   it and read just after:
+   the stream (``make_stream`` under ``ManualClock``, two QoS classes, the
+   hub cache with reuse admission; the 274 queries in bursts, twice; every
+   future equal to ``query_batch``; ``sketch_batch`` and ``hybrid_relay``
+   only), then one ``SystemClock`` stream whose lone query its deadline
+   timer must resolve (not counted);
+   the replicas (``ReplicaRouter``, 2 replicas, drain and restore of one,
+   the Prometheus text scraped over HTTP; the same answers and kernels);
+   the updates: an incremental batch (4 inserts closing 2-paths, 4
+   deletes; 1-10 landmarks recomputed, E unchanged; ``hybrid_relay`` only)
+   and a rebuild batch (the churn branch; the net insert doubles E), each
+   equal to a fresh build of the new graph on tables and answers with the
+   source index unchanged, and an epoch straddle (``submit_update`` with a
+   chunk in flight: old futures answer for epoch 0, later ones for 1);
 6. 8 sampled answers against a scipy BFS oracle; the baselines on the
    card: Bi-BFS on 32 general pairs and the two-BFS oracle on 2 pairs of
    the 1.1 M-vertex graph must give the QbS answers, and PPL (with and
@@ -46,7 +62,8 @@ Phases (each raises on failure; nothing is caught):
    paper shows it does not scale, so it runs on a 1,000-vertex graph) must
    agree with a QbS index of the same graph;
 7. the serving CLI (``repro_torch.launch.serve.main``) in process, at
-   ``--n 20000`` on the ``ba`` and ``cliques`` graphs;
+   ``--n 20000`` on the ``ba`` graph (through ``--replicas 2
+   --metrics-port 0``) and the ``cliques`` graph;
 8. the kernels' JSON line, then the device line last.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero without
@@ -55,6 +72,7 @@ a CUDA device.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import statistics
@@ -630,12 +648,7 @@ def same_as_hybrid(idx_h, res_h, idx_b, res_b, backend):
             raise AssertionError(f"{backend} and hybrid disagree on scheme.{f}")
     if not all(torch.equal(a, b) for a, b in zip(idx_h.packed, idx_b.packed)):
         raise AssertionError(f"{backend} and hybrid disagree on the packed tables")
-    if len(res_b) != len(res_h):
-        raise AssertionError("query_batch returned the wrong number of answers")
-    for a, b in zip(res_h, res_b):
-        if a.dist != b.dist or not np.array_equal(a.edge_ids, b.edge_ids):
-            raise AssertionError(f"{backend} and hybrid disagree on query "
-                                 f"({a.u}, {a.v})")
+    same_answers(res_b, res_h, f"{backend} against hybrid")
     log(f"hybrid == {backend} on tables and on all {len(res_h)} answers")
 
 
@@ -741,6 +754,306 @@ def baselines(core, g, us, vs, general, res_h, oracle_pairs):
         log(f"[baselines] PPLIndex(store_parents={parents}) == QbS on "
             f"{len(res)} pairs of BA(1000, 3): {ppl.label_entries()} label "
             f"entries, {ppl.memory_bytes()} bytes, built in {t_build:.2f} s")
+
+
+def same_answers(got, want, what: str) -> None:
+    """Answers (``SPGResult``s) equal on u, v, dist, d_top and edge ids."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} answers for {len(want)} queries")
+    for a, b in zip(got, want):
+        if (a.u, a.v, a.dist, a.d_top) != (b.u, b.v, b.dist, b.d_top) \
+                or not np.array_equal(a.edge_ids, b.edge_ids):
+            raise AssertionError(f"{what}: query ({b.u}, {b.v}) disagrees")
+
+
+def stream_phase(ops, idx_h, us, vs, res_h, general):
+    """The streaming scheduler on the hybrid index under ``ManualClock``: two
+    QoS classes, the hub cache with reuse admission, the 274 queries in
+    bursts of 16 alternating between the classes (1 ms apart), then all of
+    them again, a 100 ms step and a drain.  The counters are set to 0 just
+    before the first submit and read just after the drain.  Then one
+    ``SystemClock`` stream with a lone general query, which its class's
+    deadline timer must admit and resolve (its launches are not counted)."""
+    from repro_torch.serving import AdmissionPolicy, ManualClock, QoSClass
+
+    clock = ManualClock()
+    st = idx_h.make_stream(
+        clock=clock, cache_size=4096, cache_policy="hub", cache_admission="reuse",
+        qos=(QoSClass("interactive", max_wait=0.002, weight=3.0),
+             QoSClass("batch", max_wait=0.05, weight=1.0)))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    futs = []
+    for _ in range(2):
+        for k in range(0, us.size, 16):
+            futs += st.submit_batch(us[k:k + 16], vs[k:k + 16],
+                                    qos=("interactive", "batch")[k // 16 % 2])
+            clock.advance(0.001)
+    clock.advance(0.1)
+    st.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    same_answers([f.result() for f in futs], res_h + res_h, "stream")
+    if {f.epoch for f in futs} != {0}:
+        raise AssertionError("stream futures resolved under another epoch")
+    s = dict(st.stats)
+    if s["cache_hits"] + s["joined"] == 0 or st.n_pending or st.n_inflight:
+        raise AssertionError(f"stream: no cache hit or join, or work left: {s}")
+    waits = {c: max(st.qos_stats[c]["waits"], default=0.0) for c in st.qos_stats}
+    log(f"[stream] {len(futs)} futures == query_batch in {wall:.2f} s "
+        f"({len(futs) / wall:.1f} queries/s); {s['chunks']} chunks "
+        f"({s['padded_rows']} padded rows), {s['cache_hits']} cache hits, "
+        f"{s['joined']} joins, {len(st.admission_log)} admission rounds in "
+        f"{s['admissions']} flushes ({s['deadline_flushes']} by deadline); "
+        f"max wait per class (simulated s) {waits}; launches {counts}")
+    log(f"[stream] stats {s}")
+    st.close()
+
+    i = int(general[0])
+    lone = idx_h.make_stream(qos=(QoSClass("interactive", max_wait=0.005),),
+                             policy=AdmissionPolicy(adaptive=False, chunk=64))
+    t0 = time.perf_counter()
+    fut = lone.submit(int(us[i]), int(vs[i]), qos="interactive")
+    while not fut.done() and time.perf_counter() - t0 < 60.0:
+        time.sleep(0.001)
+    if not fut.done():
+        raise AssertionError("SystemClock stream: the lone query did not resolve")
+    waited = time.perf_counter() - t0
+    same_answers([fut.result()], [res_h[i]], "SystemClock stream")
+    lone.close()
+    log(f"[stream] SystemClock lone query ({us[i]}, {vs[i]}), max_wait 5 ms: "
+        f"resolved by its deadline timer in {waited * 1e3:.1f} ms")
+    return counts
+
+
+def replicas_phase(ops, idx_h, us, vs, res_h):
+    """``ReplicaRouter(idx_h, n_replicas=2, cache_size=4096)`` (both replicas
+    on the one card) on the 274 queries; ``drain_replica(0)`` and
+    ``restore_replica(0)`` (pending pairs and packed cache entries moved),
+    the queries again; the Prometheus text scraped over HTTP from
+    ``serve_metrics`` on 127.0.0.1 (port 0).  The counters are set to 0 just
+    before the first submit and read just after the second drain."""
+    import urllib.request
+
+    from repro_torch.serving import MetricsRegistry, ReplicaRouter, serve_metrics
+
+    router = ReplicaRouter(idx_h, n_replicas=2, cache_size=4096)
+    registry = MetricsRegistry()
+    for i, rep in enumerate(router.replicas):
+        registry.register(f"replica{i}", rep)
+    server = serve_metrics(registry, port=0, host="127.0.0.1")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = router.submit_batch(us, vs)
+    router.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    router.drain_replica(0)
+    router.restore_replica(0)
+    t1 = time.perf_counter()
+    second = router.submit_batch(us, vs)
+    router.drain()
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t1
+    counts = dict(ops.LAUNCHES)
+    same_answers([f.result() for f in first], res_h, "replicas")
+    same_answers([f.result() for f in second], res_h, "replicas after restore")
+    port = server.server_address[1]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    server.shutdown()
+    server.server_close()
+    observed = sum(int(m) for m in re.findall(
+        r"^qbs_latency_us_count\{[^}]*\} (\d+)$", text, re.M))
+    if observed != len(first) + len(second):
+        raise AssertionError(f"metrics: {observed} latency observations for "
+                             f"{len(first) + len(second)} resolved futures")
+    per = {i: (rep.stats["submitted"], rep.stats["chunks"],
+               rep.service.cache.bytes) for i, rep in enumerate(router.replicas)}
+    log(f"[replicas] 2 replicas == query_batch on {len(first)} queries in "
+        f"{wall:.2f} s ({len(first) / wall:.1f} queries/s); after drain and "
+        f"restore of replica 0 ({router.stats['cache_shipped']} cache entries "
+        f"shipped) again in {wall2:.3f} s ({len(second) / wall2:.1f} queries/s); "
+        f"per replica (submitted, chunks, cache bytes) {per}; scraped "
+        f"{len(text.splitlines())} metric lines, latency counts {observed}; "
+        f"launches {counts}")
+    router.close()
+    return counts
+
+
+def incremental_batch(core, idx_h, rng, k: int = 4):
+    """``k`` inserts that close 2-paths (u - w - x -> u - x) and ``k``
+    deletes, all endpoints distinct, chosen so that the batch touches 1-10
+    landmarks.  Each candidate is judged alone by ``affected_landmarks`` on
+    host copies of the tables; with distinct endpoints the batch's affected
+    set is the union of its edges' sets.  A delete is judged on the CSR
+    rows of its two endpoints without the edge, which is all of the new
+    graph that the criterion reads."""
+    from types import SimpleNamespace
+
+    g = idx_h.graph
+    scheme = core.LabellingScheme(*(t.cpu().numpy() for t in idx_h.scheme))
+    lm = idx_h._lm_dist_host
+    indptr = g.indptr.cpu().numpy()
+    dst = g.dst.cpu().numpy()
+    is_lm = scheme.is_landmark
+    host = SimpleNamespace(indptr=indptr, dst=dst)
+    nbrs = lambda x: dst[indptr[x]:indptr[x + 1]]            # noqa: E731
+    used: set = set()
+    aff = np.zeros((lm.shape[0],), bool)
+    ins = []
+    for _ in range(100_000):
+        if len(ins) == k:
+            break
+        w = int(rng.integers(0, g.n_vertices))
+        nb = [int(x) for x in nbrs(w) if not is_lm[x] and x not in used]
+        if len(nb) < 2 or is_lm[w]:
+            continue
+        u, x = (int(a) for a in rng.choice(nb, 2, replace=False))
+        if x in nbrs(u) or u == x:
+            continue
+        got = core.affected_landmarks(scheme, lm, host, inserts=[(u, x)])
+        n = int(got.sum())
+        if n > 2 or (not ins and n == 0) or (aff | got).sum() > 8:
+            continue
+        ins.append((min(u, x), max(u, x)))
+        used |= {u, x}
+        aff |= got
+    dels = []
+    for _ in range(100_000):
+        if len(dels) == k:
+            break
+        a = int(rng.integers(0, g.n_vertices))
+        nb = [int(x) for x in nbrs(a) if x not in used and x != a]
+        if a in used or not nb:
+            continue
+        b = nb[int(rng.integers(len(nb)))]
+        lo, hi = min(a, b), max(a, b)
+        rows = [nbrs(lo)[nbrs(lo) != hi], nbrs(hi)[nbrs(hi) != lo]]
+        ptr = np.zeros((g.n_vertices + 1,), np.int64)
+        ptr[lo + 1] = rows[0].size
+        ptr[hi] = rows[0].size
+        ptr[hi + 1] = rows[0].size + rows[1].size
+        view = SimpleNamespace(indptr=ptr, dst=np.concatenate(rows))
+        got = core.affected_landmarks(scheme, lm, view, deletes=[(lo, hi)])
+        if got.sum() > 1 or (aff | got).sum() > 8:
+            continue
+        dels.append((lo, hi))
+        used |= {lo, hi}
+        aff |= got
+    if len(ins) < k or len(dels) < k:
+        raise AssertionError("no incremental update batch found")
+    return np.asarray(ins), np.asarray(dels), int(aff.sum())
+
+
+def update_phase(core, ops, idx_h, us, vs, res_h, lms, chunk):
+    """Epoch-versioned updates on the hybrid index: an incremental batch
+    (equal inserts and deletes, E unchanged, 1-10 landmarks recomputed; the
+    counters are set to 0 just before its ``apply_update`` and read just
+    after) and a rebuild batch (64 random inserts, 16 deletes: the churn
+    branch, and the net insert doubles E).  Each is held against a fresh
+    ``QbSIndex.build`` of the new graph with the same landmarks (packed
+    tables, lm_dist, the 274 answers), and the source index's tables must
+    be unchanged.  Last, the epoch straddle: a stream with chunks in flight
+    (``async_depth=2``) takes ``submit_update``; its old-epoch futures must
+    equal ``res_h`` and later submits the new index's answers."""
+    from repro_torch.serving import AdmissionPolicy, ManualClock
+
+    g = idx_h.graph
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    ins, dels, predicted = incremental_batch(core, idx_h, rng)
+    log(f"[update] incremental batch: {len(ins)} inserts closing 2-paths, "
+        f"{len(dels)} deletes ({predicted} landmarks touched by the edges "
+        f"alone; chosen in {time.perf_counter() - t0:.1f} s)")
+    src = [t.clone() for t in (*idx_h.graph, *idx_h.scheme, *idx_h.packed)]
+    src_lm = idx_h._lm_dist_host.copy()
+
+    def check(new, what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = core.QbSIndex.build(new.graph, landmarks=lms, backend="hybrid",
+                                    chunk=chunk, device=idx_h.device)
+        torch.cuda.synchronize()
+        t_fresh = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(new.packed, fresh.packed)):
+            raise AssertionError(f"{what}: packed tables differ from a fresh build")
+        if not np.array_equal(new._lm_dist_host, fresh._lm_dist_host):
+            raise AssertionError(f"{what}: lm_dist differs from a fresh build")
+        t0 = time.perf_counter()
+        got = new.query_batch(us, vs)
+        torch.cuda.synchronize()
+        t_q = time.perf_counter() - t0
+        same_answers(got, fresh.query_batch(us, vs), f"{what} vs a fresh build")
+        now = (*idx_h.graph, *idx_h.scheme, *idx_h.packed)
+        if not (all(torch.equal(a, b) for a, b in zip(src, now))
+                and np.array_equal(src_lm, idx_h._lm_dist_host)):
+            raise AssertionError(f"{what}: the source index's tables changed")
+        return fresh, got, t_fresh, t_q
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    inc = idx_h.apply_update(inserts=ins, deletes=dels)
+    torch.cuda.synchronize()
+    t_inc = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    info = inc.last_update_info
+    if info["full_rebuild"] or not 1 <= info["n_affected"] <= 10 \
+            or inc.graph.n_edges != g.n_edges or inc.epoch != 1:
+        raise AssertionError(f"incremental batch: {info}, {inc.graph.n_edges} slots")
+    _, res_inc, t_fresh, t_q = check(inc, "incremental update")
+    log(f"[update] incremental: apply_update {t_inc:.2f} s (fresh build "
+        f"{t_fresh:.2f} s); n_affected {info['n_affected']} "
+        f"{info['affected'].tolist()}, full_rebuild False, {inc.graph.n_edges} "
+        f"edge slots; tables and {len(us)} answers == fresh build "
+        f"(query_batch {t_q:.2f} s); source index unchanged; launches {counts}")
+
+    present = set(map(tuple, core.edge_set(g)[rng.choice(g.n_edges // 2, 16,
+                                                          replace=False)].tolist()))
+    new_ins = rng.integers(0, g.n_vertices, size=(64, 2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    reb = idx_h.apply_update(inserts=new_ins, deletes=sorted(present))
+    torch.cuda.synchronize()
+    t_reb = time.perf_counter() - t0
+    info = reb.last_update_info
+    if not info["full_rebuild"] or reb.graph.n_edges != 2 * g.n_edges:
+        raise AssertionError(f"rebuild batch: {info}, {reb.graph.n_edges} slots")
+    fresh, _, t_fresh, t_q = check(reb, "rebuild update")
+    log(f"[update] rebuild: apply_update {t_reb:.2f} s (fresh build "
+        f"{t_fresh:.2f} s); n_affected {info['n_affected']}, full_rebuild True; "
+        f"E {g.n_edges} -> {reb.graph.n_edges} edge slots; tables and "
+        f"{len(us)} answers == fresh build (query_batch {t_q:.2f} s); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({before / 2**30:.2f} GiB held before the batch)")
+    del reb, fresh
+
+    st = idx_h.make_stream(clock=ManualClock(), async_depth=2,
+                           policy=AdmissionPolicy(adaptive=False, chunk=chunk))
+    old = st.submit_batch(us, vs)
+    in_flight = st.n_inflight
+    if in_flight == 0:
+        raise AssertionError("epoch straddle: no chunk in flight at the update")
+    t0 = time.perf_counter()
+    st.submit_update(inserts=ins, deletes=dels)
+    t_sub = time.perf_counter() - t0
+    later = st.submit_batch(us, vs)
+    st.drain()
+    if {f.epoch for f in old} != {0} or {f.epoch for f in later} != {1}:
+        raise AssertionError("epoch straddle: futures resolved under the wrong epoch")
+    same_answers([f.result() for f in old], res_h, "epoch 0 futures")
+    same_answers([f.result() for f in later], res_inc, "epoch 1 futures")
+    log(f"[update] epoch straddle: {in_flight} chunk(s) in flight at "
+        f"submit_update ({t_sub:.2f} s); {len(old)} epoch-0 futures == the old "
+        f"index, {len(later)} epoch-1 futures == the new index")
+    st.close()
+    return counts
 
 
 def main() -> int:
@@ -852,6 +1165,24 @@ def main() -> int:
         first = lanes["general"][:chunk]
         for idx in (idx_h, idx_s, idx_c):
             breakdown(core, idx, us[first], vs[first])
+    # an index and its default service reference each other, so only the
+    # cycle collector frees them: collect now, or the memory figures below
+    # depend on when it happens to run
+    del idx_s, idx_c, res_s, res_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the live serving tier and the dynamic updates, on the hybrid index
+    launches["stream"] = stream_phase(ops, idx_h, us, vs, res_h, lanes["general"])
+    launches["replicas"] = replicas_phase(ops, idx_h, us, vs, res_h)
+    launches["update"] = update_phase(core, ops, idx_h, us, vs, res_h, lms, chunk)
+    for path, names in (("stream", ("sketch_batch", "hybrid_relay")),
+                        ("replicas", ("sketch_batch", "hybrid_relay")),
+                        ("update", ("hybrid_relay",))):
+        for name, count in launches[path].items():
+            if (name in names) != (count > 0):
+                raise AssertionError(f"kernel {name} was launched {count} times "
+                                     f"on the {path} path")
 
     sample = np.concatenate([rng.choice(lanes["general"], size=5, replace=False),
                              lanes["landmark_pair"][:1], lanes["one_sided"][:1],
@@ -873,10 +1204,12 @@ def main() -> int:
 
     # phase 7: the serving CLI, in process, on the card
     from repro_torch.launch import serve
-    for graph, backend in (("ba", "hybrid"), ("cliques", "csr")):
+    for graph, backend, extra in (("ba", "hybrid", ["--replicas", "2",
+                                                    "--metrics-port", "0"]),
+                                  ("cliques", "csr", [])):
         t0 = time.perf_counter()
         serve.main(["--graph", graph, "--n", "20000", "--landmarks", "20",
-                    "--queries", "200", "--backend", backend])
+                    "--queries", "200", "--backend", backend, *extra])
         log(f"[cli] {graph} on {backend}: {time.perf_counter() - t0:.1f} s")
 
     # phase 8: results

@@ -58,13 +58,19 @@ def scheme_from_numpy(scheme_arrays, *, device=None) -> LabellingScheme:
 def index_from_numpy(graph_arrays, scheme_arrays, *, device=None,
                      backend: str = "segment", n_hubs: int | None = None,
                      chunk: int = 32, max_levels: int = 512,
-                     max_chain: int = 512) -> QbSIndex:
+                     max_chain: int = 512, epoch: int = 0,
+                     lm_dist=None) -> QbSIndex:
     """A ``QbSIndex`` on ``device`` over the reference's graph and labelling
     arrays, with the port's relay ``backend`` (``n_hubs`` sizes the hybrid
-    hub block)."""
+    hub block).  ``epoch`` and ``lm_dist`` (the reference index's host
+    ``(R, V)`` table, ``_lm_dist_host``) carry an updated index across: a
+    reference index at epoch k converts to a port index at epoch k."""
     dev = resolve_device(device)
     graph = graph_from_numpy(*_fields(graph_arrays, GRAPH_FIELDS), device=dev)
     scheme = scheme_from_numpy(scheme_arrays, device=dev)
     engine_opts = {} if n_hubs is None else {"n_hubs": n_hubs}
+    if lm_dist is not None:
+        lm_dist = np.array(lm_dist, np.int32)     # a copy, like _tensor
     return QbSIndex(graph, scheme, backend=backend, engine_opts=engine_opts,
-                    chunk=chunk, max_levels=max_levels, max_chain=max_chain)
+                    chunk=chunk, max_levels=max_levels, max_chain=max_chain,
+                    epoch=epoch, lm_dist=lm_dist)

@@ -11,7 +11,9 @@ from .frontier import (
 from .graph import (
     INF,
     Graph,
+    apply_edge_updates,
     barabasi_albert_graph,
+    edge_keys,
     edge_set,
     from_edges,
     gnp_random_graph,
@@ -22,7 +24,14 @@ from .graph import (
     ring_of_cliques,
     select_landmarks,
 )
-from .labelling import LabellingScheme, build_labelling, labelling_size_bytes, meta_apsp
+from .labelling import (
+    LabellingScheme,
+    affected_landmarks,
+    build_labelling,
+    labelling_size_bytes,
+    meta_apsp,
+    update_labelling,
+)
 from .packing import (
     PackedLabels,
     choose_pack_dtype,
@@ -30,6 +39,7 @@ from .packing import (
     pack_dist,
     pack_labelling,
     packed_size_bytes,
+    patch_packed,
     unpack_bits,
     widen_dist,
 )
@@ -38,15 +48,18 @@ from .search import Query, SearchContext, SearchResult, guided_search, make_sear
 from .sketch import SketchBatch, compute_sketch_batch, d_top_only
 
 __all__ = [
-    "INF", "Graph", "barabasi_albert_graph", "edge_set", "from_edges",
+    "INF", "Graph", "apply_edge_updates", "barabasi_albert_graph", "edge_keys",
+    "edge_set", "from_edges",
     "gnp_random_graph", "grid_graph", "largest_connected_component",
     "random_regular_graph", "resolve_device", "ring_of_cliques",
     "select_landmarks",
     "FrontierEngine", "HubSplit", "bfs_depths", "bfs_depths_batch",
     "hub_split", "make_relay", "segment_or",
-    "LabellingScheme", "build_labelling", "labelling_size_bytes", "meta_apsp",
+    "LabellingScheme", "affected_landmarks", "build_labelling",
+    "labelling_size_bytes", "meta_apsp", "update_labelling",
     "PackedLabels", "choose_pack_dtype", "pack_bits", "pack_dist",
-    "pack_labelling", "packed_size_bytes", "unpack_bits", "widen_dist",
+    "pack_labelling", "packed_size_bytes", "patch_packed", "unpack_bits",
+    "widen_dist",
     "QbSIndex", "SPGResult",
     "Query", "SearchContext", "SearchResult", "guided_search",
     "make_search_context",

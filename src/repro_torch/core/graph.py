@@ -90,20 +90,25 @@ def from_edges(
     argsort by ``src``.  Optional padding appends isolated vertices and
     self-loop edge slots on the last vertex.
     """
-    dev = resolve_device(device)
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     edges = edges[edges[:, 0] != edges[:, 1]]
-    if edges.size:
-        lo = np.minimum(edges[:, 0], edges[:, 1])
-        hi = np.maximum(edges[:, 0], edges[:, 1])
-        canon = np.unique(lo * np.int64(n_vertices) + hi)
-        lo = (canon // n_vertices).astype(np.int32)
-        hi = (canon % n_vertices).astype(np.int32)
-        s = np.concatenate([lo, hi])
-        d = np.concatenate([hi, lo])
-    else:
-        s = np.zeros((0,), np.int32)
-        d = np.zeros((0,), np.int32)
+    lo = np.minimum(edges[:, 0], edges[:, 1])
+    hi = np.maximum(edges[:, 0], edges[:, 1])
+    return _from_keys(np.unique(lo * np.int64(n_vertices) + hi), n_vertices,
+                      pad_vertices_to=pad_vertices_to,
+                      pad_edges_to=pad_edges_to, device=device)
+
+
+def _from_keys(canon: np.ndarray, n_vertices: int, *,
+               pad_vertices_to: int | None, pad_edges_to: int | None,
+               device) -> Graph:
+    """``from_edges`` from its canonical keys: sorted unique int64
+    ``lo * V + hi`` with lo < hi."""
+    dev = resolve_device(device)
+    lo = (canon // n_vertices).astype(np.int32)
+    hi = (canon % n_vertices).astype(np.int32)
+    s = np.concatenate([lo, hi])
+    d = np.concatenate([hi, lo])
 
     n_v = n_vertices
     if pad_vertices_to is not None:
@@ -135,6 +140,58 @@ def edge_set(graph: Graph) -> np.ndarray:
     d = graph.dst.cpu().numpy().astype(np.int64)
     real = s < d
     return np.stack([s[real], d[real]], axis=1)
+
+
+def edge_keys(edges: np.ndarray, n_vertices: int) -> np.ndarray:
+    """Canonical sorted int64 keys (``lo * V + hi``, self-loops dropped) for
+    an (M, 2) undirected edge array."""
+    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    if edges.size and (edges.min() < 0 or edges.max() >= n_vertices):
+        raise ValueError(f"edge endpoint out of range for {n_vertices} vertices")
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    lo = np.minimum(edges[:, 0], edges[:, 1])
+    hi = np.maximum(edges[:, 0], edges[:, 1])
+    return np.unique(lo * np.int64(n_vertices) + hi)
+
+
+def graph_keys(graph: Graph) -> np.ndarray:
+    """The canonical keys of the graph's real edges, sorted and unique: the
+    keys of ``edge_set``, which lists the edges in key order."""
+    cur = edge_set(graph)
+    return cur[:, 0] * np.int64(graph.n_vertices) + cur[:, 1]
+
+
+def in_sorted(keys: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """``np.isin(keys, table)`` for a sorted unique ``table``, by binary
+    search: neither array is sorted again (``np.isin`` sorts both, which
+    takes seconds over the millions of keys of a large graph)."""
+    pos = np.searchsorted(table, keys)
+    hit = pos < table.size
+    hit[hit] = table[pos[hit]] == keys[hit]
+    return hit
+
+
+def apply_edge_updates(graph: Graph, inserts: np.ndarray | None = None,
+                       deletes: np.ndarray | None = None) -> Graph:
+    """A new ``Graph``, on the graph's device, with ``inserts`` added and
+    ``deletes`` removed (an edge in both is inserted).  The vertex count and
+    the edge-slot capacity are kept, the capacity doubling only when the new
+    edge set overflows it.  The edge set stays in canonical key order, so
+    the edge-slot ids depend only on the edge set and the capacity, as in
+    the reference."""
+    n_v = graph.n_vertices
+    keys = graph_keys(graph)
+    if deletes is not None:
+        keys = keys[~in_sorted(keys, edge_keys(deletes, n_v))]
+    if inserts is not None:
+        new = edge_keys(inserts, n_v)
+        new = new[~in_sorted(new, keys)]
+        keys = np.insert(keys, np.searchsorted(keys, new), new)
+    cap = graph.n_edges
+    while cap < 2 * len(keys):
+        cap = max(2 * cap, 2)
+    return _from_keys(keys, n_v, pad_vertices_to=n_v, pad_edges_to=cap,
+                      device=graph.device)
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,18 @@ def take(table: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
     return table[index]
 
 
+def put(table: torch.Tensor, index: tuple, values: torch.Tensor) -> torch.Tensor:
+    """A copy of ``table`` with ``copy[index] = values``; ``table`` itself is
+    never written (an index of an earlier epoch may still be serving it).
+    uint16 tables are written through their int16 view, like ``take``."""
+    out = table.clone()
+    if out.dtype == torch.uint16:
+        out.view(torch.int16)[index] = values.view(torch.int16)
+    else:
+        out[index] = values
+    return out
+
+
 def widen_dist(a: torch.Tensor) -> torch.Tensor:
     """Widen a (possibly packed) distance tensor to int32 with INF restored:
     signed inputs pass through as int32, uint8/uint16 are sentinel-decoded."""
@@ -147,6 +159,37 @@ def pack_labelling(scheme, lm_dist=None, *, dtype=None) -> PackedLabels:
         meta_w=pack_dist(scheme.meta_w, dtype),
         meta_dist=pack_dist(scheme.meta_dist, dtype),
         lm_dist=None if lm_dist is None else pack_dist(lm_dist, dtype),
+    )
+
+
+def patch_packed(old: PackedLabels, scheme, lm_dist, affected) -> PackedLabels:
+    """The packed tables after an incremental labelling update, equal to a
+    fresh ``pack_labelling`` of ``(scheme, lm_dist)``.
+
+    ``affected`` holds the landmark indices whose label columns and lm_dist
+    rows changed (``update_labelling``'s ``info["affected"]``), ``lm_dist``
+    the host ``(R, V)`` int32 table.  The dtype is re-derived from the new
+    tables, so a measured diameter crossing the uint8 sentinel forces a
+    full repack to uint16 (and one receding below it narrows back).
+    Otherwise only the affected label columns and lm_dist rows are packed,
+    on the device, and written into copies of the old tables (``put``):
+    ``old`` stays as it was.  The (R, R) meta tables are repacked whole.
+    """
+    dev = old.label_dist.device
+    dtype = choose_pack_dtype(scheme.label_dist, scheme.meta_w,
+                              scheme.meta_dist, lm_dist)
+    if dtype != old.dtype or old.lm_dist is None:
+        lm = torch.as_tensor(np.asarray(lm_dist), device=dev)
+        return pack_labelling(scheme, lm_dist=lm, dtype=dtype)
+    aff = np.asarray(affected, np.int32)
+    idx = torch.as_tensor(aff, device=dev).to(torch.int64)
+    cols = pack_dist(scheme.label_dist[:, idx], dtype)
+    rows = pack_dist(np.asarray(lm_dist)[aff, :], dtype, device=dev)
+    return PackedLabels(
+        label_dist=put(old.label_dist, (slice(None), idx), cols),
+        meta_w=pack_dist(scheme.meta_w, dtype),
+        meta_dist=pack_dist(scheme.meta_dist, dtype),
+        lm_dist=put(old.lm_dist, (idx,), rows),
     )
 
 

@@ -23,6 +23,11 @@ owns the per-lane device steps:
 ``backend=`` picks the relay (``segment``, ``csr`` or ``hybrid``); under
 ``hybrid`` every relay is one call of the fused ``hybrid_relay`` kernel on
 the card.  There is no ``use_pallas`` switch: the device decides.
+
+Dynamic graphs (DESIGN.md §13): ``apply_update`` applies one edge
+insert/delete batch and returns the index of the next epoch, recomputing
+only the affected landmarks' BFS rows; the source index's tensors are
+never written, so work still pinned to its epoch keeps its answers.
 """
 from __future__ import annotations
 
@@ -33,9 +38,18 @@ import numpy as np
 import torch
 
 from .frontier import bfs_depths_batch, make_relay
-from .graph import INF, Graph, resolve_device, select_landmarks
-from .labelling import LabellingScheme, build_labelling
-from .packing import pack_labelling, take, widen_dist
+from .graph import (
+    INF,
+    Graph,
+    apply_edge_updates,
+    edge_keys,
+    graph_keys,
+    in_sorted,
+    resolve_device,
+    select_landmarks,
+)
+from .labelling import LabellingScheme, build_labelling, update_labelling
+from .packing import pack_labelling, patch_packed, take, widen_dist
 from .search import Query, guided_search, make_search_context
 from .sketch import compute_sketch_batch
 
@@ -132,10 +146,12 @@ def _landmark_onesided_lanes(engine, lm_dist, src, dst, rev_edge, roots,
 class QbSIndex:
     """Labelling, packed tables and relay engines of one graph on one device."""
 
+    is_sharded = False   # one device; the vertex-sharded index is not ported
+
     def __init__(self, graph: Graph, scheme: LabellingScheme, *,
                  max_levels: int = 512, max_chain: int = 512, chunk: int = 32,
                  backend: str = "segment", engine_opts: dict | None = None,
-                 lm_dist=None, packed=None):
+                 epoch: int = 0, lm_dist=None, packed=None):
         self.graph = graph
         self.scheme = scheme
         self.device = graph.device
@@ -143,15 +159,28 @@ class QbSIndex:
         self.max_chain = max_chain
         self.chunk = chunk
         self.backend = backend
+        # the epoch of the graph this index answers for; ``apply_update``
+        # returns the next epoch's index and records how it resolved the
+        # batch (affected set, rebuild) in ``last_update_info``
+        self.epoch = epoch
+        self.last_update_info: dict = {}
         engine_opts = engine_opts or {}
+        self._engine_opts = dict(engine_opts)
         # (R, V) exact vertex-to-landmark distances, built once so the
-        # landmark lanes gather rows instead of re-reducing the labels
-        if lm_dist is None:
-            lm_dist = _dists_to_landmark_batch(
-                scheme.label_dist, scheme.meta_dist, scheme.lid,
-                scheme.is_landmark,
-                torch.arange(scheme.n_landmarks, device=self.device))
+        # landmark lanes gather rows instead of re-reducing the labels.  The
+        # update path keeps the int32 table on the host (``_lm_dist_host``):
+        # ``apply_update`` hands the maintained host table in, and an index
+        # built from its labels derives it on first use from the packed
+        # table (packing is exact).
+        if isinstance(lm_dist, np.ndarray):
+            self._lm_dist_host = np.asarray(lm_dist, np.int32)
         if packed is None:
+            if lm_dist is None:
+                lm_dist = _dists_to_landmark_batch(
+                    scheme.label_dist, scheme.meta_dist, scheme.lid,
+                    scheme.is_landmark,
+                    torch.arange(scheme.n_landmarks, device=self.device))
+            lm_dist = torch.as_tensor(lm_dist, device=self.device)
             packed = pack_labelling(scheme, lm_dist=lm_dist)
         self.packed = packed
         self._lm_dist = packed.lm_dist
@@ -165,6 +194,12 @@ class QbSIndex:
         self._src64 = graph.src.to(torch.int64)
         self._dst64 = graph.dst.to(torch.int64)
         self._service = None
+
+    @cached_property
+    def _lm_dist_host(self) -> np.ndarray:
+        """(R, V) int32 exact vertex-to-landmark distances on the host, the
+        table ``update_labelling`` reads and maintains."""
+        return widen_dist(self._lm_dist).cpu().numpy()
 
     @cached_property
     def _rev_edge_t(self) -> torch.Tensor:
@@ -206,6 +241,59 @@ class QbSIndex:
             self._full_engine, self._lm_dist, self._src64, self._dst64,
             self._rev_edge_t, roots, r_idx, max_levels=self.max_levels)
 
+    # -- dynamic updates (DESIGN.md §13) -------------------------------------
+
+    def apply_update(self, inserts=None, deletes=None, *,
+                     churn_threshold: float = 0.5) -> "QbSIndex":
+        """Apply one edge-update batch and return the index of the next
+        epoch.  ``self`` is untouched: ``update_labelling`` and
+        ``patch_packed`` write into copies, so chunks pinned to this epoch
+        keep its answers.
+
+        The landmark set stays pinned; only the affected landmarks' BFS rows
+        are recomputed on the new graph, and past ``churn_threshold``
+        (affected fraction of R) the labelling is rebuilt outright.  Either
+        way the new tables equal a fresh build on the new graph with the
+        same landmarks.
+        """
+        # the effective delta: insert-of-present and delete-of-absent edges
+        # are no-ops and must never flag a landmark
+        n_v = self.graph.n_vertices
+        present = graph_keys(self.graph)              # sorted, unique
+        ins0 = edge_keys(inserts, n_v) if inserts is not None else \
+            np.zeros((0,), np.int64)
+        del0 = edge_keys(deletes, n_v) if deletes is not None else \
+            np.zeros((0,), np.int64)
+        ins = ins0[~in_sorted(ins0, present)]         # insert-of-absent only
+        dels = del0[in_sorted(del0, present)]         # delete-of-present only
+        dels = dels[~in_sorted(dels, ins0)]           # inserts win a tie
+        ins_arr = np.stack([ins // n_v, ins % n_v], axis=1)
+        del_arr = np.stack([dels // n_v, dels % n_v], axis=1)
+
+        graph_new = apply_edge_updates(self.graph, ins_arr, del_arr)
+        scheme_new, lm_new, info = update_labelling(
+            graph_new, self.scheme, self._lm_dist_host, ins_arr, del_arr,
+            backend=self.backend, churn_threshold=churn_threshold,
+            **self._engine_opts)
+        kw = dict(max_levels=self.max_levels, max_chain=self.max_chain,
+                  chunk=self.chunk, backend=self.backend,
+                  engine_opts=self._engine_opts, epoch=self.epoch + 1)
+        if scheme_new is None:  # churn above threshold: full rebuild
+            scheme_new = build_labelling(
+                graph_new, self.scheme.landmarks.cpu().numpy(),
+                backend=self.backend, device=self.device, **self._engine_opts)
+            new = QbSIndex(graph_new, scheme_new, **kw)
+        else:
+            if info["n_affected"]:
+                packed_new = patch_packed(
+                    self.packed, scheme_new, lm_new, info["affected"])
+            else:
+                packed_new = self.packed  # labels untouched; only CSR moved
+            new = QbSIndex(graph_new, scheme_new, lm_dist=lm_new,
+                           packed=packed_new, **kw)
+        new.last_update_info = info
+        return new
+
     # -- construction -------------------------------------------------------
 
     @classmethod
@@ -228,9 +316,18 @@ class QbSIndex:
 
     def make_service(self, **kw):
         """A ``serving.ServingService`` over this index (``async_depth``,
-        ``chunk``)."""
+        ``chunk``, the result cache and its policies)."""
         from ..serving.service import ServingService
         return ServingService(self, **kw)
+
+    def make_stream(self, *, policy=None, **kw):
+        """A ``serving.StreamingService``: queries arrive over time
+        (``submit``/``drain``, per-query futures) and are coalesced into
+        planner batches under the deadline/QoS scheduler; ``kw`` passes
+        through (``qos=``, ``clock=``, and the inner ``ServingService``'s
+        arguments)."""
+        from ..serving.stream import StreamingService
+        return StreamingService(self, policy=policy, **kw)
 
     def _default_service(self):
         if self._service is None:

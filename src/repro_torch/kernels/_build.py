@@ -8,6 +8,10 @@ Each ``csrc/<name>.cu`` compiles on first use for ``sm_90a`` into
 Nothing here runs when the package is imported, and nothing falls back:
 a build failure raises with the compiler's output.
 
+``load`` holds a lock while it builds and binds, so a first launch from a
+streaming scheduler's timer thread and one from the main thread cannot
+build or bind the same library twice.
+
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where
 it launches its kernel and nowhere else (``kernels.ops.LAUNCHES``).  The
 fused relay's one count per call stands for its two launches (pack, then
@@ -20,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -32,6 +37,7 @@ SOURCES = ("minplus", "sketch_batch", "bitmap_expand_packed", "bitmap_expand",
 LAUNCHES = {name: 0 for name in SOURCES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 BUILD_LOG: dict[str, str] = {}   # per-source nvcc output (ptxas register/smem report)
 
 
@@ -88,12 +94,16 @@ def build_all(names=SOURCES) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The bound library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.qbs_error_string.restype = ctypes.c_char_p
-        lib.qbs_error_string.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)          # another thread may have bound it
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.qbs_error_string.restype = ctypes.c_char_p
+            lib.qbs_error_string.argtypes = [ctypes.c_int]
+            _LIBS[name] = lib
     return lib
 
 

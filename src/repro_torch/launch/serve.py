@@ -8,9 +8,12 @@ batched shortest-path-graph queries.  Counterpart of
 
 ``--backend`` picks the relay (``segment``, ``csr`` or ``hybrid``);
 ``--device`` the device (the CUDA card by default; ``cpu`` runs each
-kernel's plain PyTorch version).  The reference's ``--shards``,
-``--replicas`` and ``--metrics-port`` are not ported yet: given a value,
-they exit with a message instead of serving another way.
+kernel's plain PyTorch version).  ``--replicas N`` serves through a
+consistent-hash ``ReplicaRouter`` over N streaming replicas (all on the one
+device), and ``--metrics-port P`` exports the Prometheus scrape endpoint on
+``127.0.0.1:P`` (0 picks a free port; implies one replica).  The
+reference's ``--shards`` (the vertex-sharded multi-GPU index) is not ported
+yet: given a value, it exits with a message instead of serving another way.
 """
 from __future__ import annotations
 
@@ -57,15 +60,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--shards", type=int, default=0,
                     help="not ported yet (vertex-sharded multi-GPU index)")
     ap.add_argument("--replicas", type=int, default=0,
-                    help="not ported yet (replica serving tier)")
+                    help="serve through a consistent-hash ReplicaRouter over "
+                         "this many streaming replicas (0 = direct index "
+                         "serving)")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="not ported yet (metrics scrape endpoint)")
+                    help="export the metrics scrape endpoint on this port "
+                         "(0 = pick an ephemeral port); implies at least one "
+                         "streaming replica")
     args = ap.parse_args(argv)
-    for flag, unset in (("shards", 0), ("replicas", 0), ("metrics_port", None)):
-        if getattr(args, flag) != unset:
-            ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
-                     f"package yet; the JAX package's repro.launch.serve "
-                     f"serves it")
+    if args.shards:
+        ap.error("--shards is not ported to the PyTorch package yet; the JAX "
+                 "package's repro.launch.serve serves it")
 
     dev = resolve_device(None if args.device == "cuda" else args.device)
     g = build_graph(args.graph, args.n, args.seed, device=dev)
@@ -87,8 +92,27 @@ def main(argv: list[str] | None = None) -> None:
     us = rng.integers(0, g.n_vertices, size=args.queries)
     vs = rng.integers(0, g.n_vertices, size=args.queries)
 
+    n_replicas = args.replicas
+    if args.metrics_port is not None and n_replicas == 0:
+        n_replicas = 1
+    router = server = None
+    if n_replicas:
+        from ..serving import MetricsRegistry, ReplicaRouter, serve_metrics
+        router = ReplicaRouter(idx, n_replicas=n_replicas, cache_size=4096,
+                               cache_policy="hub")
+        print(f"[serve] replica tier: {n_replicas} replicas behind "
+              f"consistent hashing")
+        if args.metrics_port is not None:
+            registry = MetricsRegistry()
+            for i, rep in enumerate(router.replicas):
+                registry.register(f"replica{i}", rep)
+            server = serve_metrics(registry, port=args.metrics_port)
+            print(f"[serve] metrics: http://127.0.0.1:"
+                  f"{server.server_address[1]}/metrics")
+
     t2 = time.perf_counter()
-    results = idx.query_batch(us, vs)
+    results = (router.query_batch(us, vs) if router is not None
+               else idx.query_batch(us, vs))
     t3 = time.perf_counter()
     dists = np.array([r.dist for r in results], dtype=np.int64)
     sizes = np.array([r.edge_ids.size for r in results])
@@ -99,6 +123,16 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[serve] dist: mean={dists[finite].mean():.2f} "
               f"max={dists[finite].max()}; SPG edges: mean={sizes.mean():.1f} "
               f"max={sizes.max()}")
+
+    if router is not None:
+        routed = router.stats["routed"]
+        per_rep = {i: rep.stats["submitted"]
+                   for i, rep in enumerate(router.replicas)}
+        print(f"[serve] router: {routed} routed, per-replica {per_rep}")
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        router.close()
 
 
 if __name__ == "__main__":

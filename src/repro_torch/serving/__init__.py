@@ -1,4 +1,13 @@
-"""SPG serving: the host-side planner and the chunked execution service."""
+"""SPG serving: the host-side planner, the chunked execution service with
+its result cache, the streaming QoS scheduler, the replica tier and the
+metrics layer."""
+from .clock import ManualClock, SystemClock
+from .metrics import (
+    LatencyHistogram,
+    MetricsRegistry,
+    merged_latency,
+    serve_metrics,
+)
 from .planner import (
     LANE_GENERAL,
     LANE_LANDMARK_PAIR,
@@ -6,9 +15,36 @@ from .planner import (
     LANE_ONE_SIDED,
     LANE_TRIVIAL,
     QueryPlan,
+    merge_plans,
+    plan_from_pairs,
     plan_queries,
 )
-from .service import ServingService
+from .replicas import ReplicaRouter
+from .service import ResultCache, ServingService, round_chunk_to_shards
+from .stream import AdmissionPolicy, QoSClass, QueryFuture, StreamingService
 
-__all__ = ["LANE_GENERAL", "LANE_LANDMARK_PAIR", "LANE_NAMES", "LANE_ONE_SIDED",
-           "LANE_TRIVIAL", "QueryPlan", "ServingService", "plan_queries"]
+__all__ = [
+    "AdmissionPolicy",
+    "LatencyHistogram",
+    "ManualClock",
+    "MetricsRegistry",
+    "QoSClass",
+    "ReplicaRouter",
+    "SystemClock",
+    "LANE_GENERAL",
+    "LANE_LANDMARK_PAIR",
+    "LANE_NAMES",
+    "LANE_ONE_SIDED",
+    "LANE_TRIVIAL",
+    "QueryFuture",
+    "QueryPlan",
+    "ResultCache",
+    "ServingService",
+    "StreamingService",
+    "merge_plans",
+    "merged_latency",
+    "plan_from_pairs",
+    "plan_queries",
+    "round_chunk_to_shards",
+    "serve_metrics",
+]

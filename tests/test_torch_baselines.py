@@ -160,9 +160,20 @@ def test_serve_cli_matches_reference(graph, capsys, monkeypatch):
 @pytest.mark.parametrize("flag", [["--shards", "2"], ["--replicas", "2"],
                                   ["--metrics-port", "0"]])
 def test_serve_cli_refuses_unported_modes(flag, capsys):
+    """``--shards`` (the multi-GPU index) is not ported and exits with a
+    message; ``--replicas`` and ``--metrics-port`` are ported and serve
+    through a ``ReplicaRouter``."""
     from repro_torch.launch import serve as tserve
 
-    with pytest.raises(SystemExit) as e:
-        tserve.main(["--n", "50", "--device", "cpu"] + flag)
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    argv = ["--n", "50", "--queries", "8", "--device", "cpu"] + flag
+    if flag[0] == "--shards":
+        with pytest.raises(SystemExit) as e:
+            tserve.main(argv)
+        assert e.value.code != 0
+        assert "not ported" in capsys.readouterr().err
+    else:
+        tserve.main(argv)
+        out = capsys.readouterr().out
+        assert "[serve] router: 8 routed" in out
+        assert ("[serve] metrics: http://127.0.0.1:" in out) == \
+            (flag[0] == "--metrics-port")

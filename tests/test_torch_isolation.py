@@ -81,6 +81,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: baselines.bfs_distances(g, 0),
                  lambda: baselines.bfs_spg(g, 0, 5),
                  lambda: baselines.bibfs_spg_batch(g, [0], [5]),
-                 lambda: serve.main(["--n", "40", "--queries", "2"])):
+                 lambda: serve.main(["--n", "40", "--queries", "2"]),
+                 lambda: serve.main(["--n", "40", "--queries", "2",
+                                     "--replicas", "2", "--metrics-port", "0"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

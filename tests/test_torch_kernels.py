@@ -397,3 +397,42 @@ def test_bitmap_expand_kernel_model(r, v, w, want_split):
     want = np.asarray(j_expand(jnp.asarray(fb != 0), jnp.asarray(ab != 0),
                                interpret=True))
     assert np.array_equal(got, want.astype(np.uint8))
+
+
+def test_load_builds_and_binds_each_library_once_across_threads(monkeypatch):
+    """A first launch from a streaming clock's timer thread and one from the
+    main thread race into ``_build.load``: under its lock the build step
+    runs once and both threads get the same bound library (the build and
+    the binding are stubbed; nothing is compiled here)."""
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    builds = []
+
+    def slow_build(names):
+        builds.append(tuple(names))
+        time.sleep(0.05)                  # wide enough for the race to show
+
+    class FakeLib:
+        qbs_error_string = type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "build_all", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    start = threading.Barrier(4)
+    got = []
+
+    def first_launch():
+        start.wait()
+        got.append(_build.load("hybrid_relay"))
+
+    threads = [threading.Thread(target=first_launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert builds == [("hybrid_relay",)]
+    assert len(got) == 4 and all(lib is got[0] for lib in got)
+    assert _build.load("hybrid_relay") is got[0]

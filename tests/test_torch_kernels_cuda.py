@@ -390,3 +390,78 @@ def test_bitmap_expand_kernel_bases_off_by_one(cuda_device, r, v, w, which):
     adj_off = shifted(adj) if which != "frontier" else adj
     assert dense_vector_loads(f, adj) and not dense_vector_loads(f_off, adj_off)
     assert torch.equal(ops.bitmap_expand(f_off, adj_off), want)
+
+
+@pytest.mark.cuda
+def test_stream_on_the_card_matches_query_batch(cuda_device):
+    """The streaming scheduler on a hybrid index on the card (two QoS
+    classes, the hub cache with reuse admission, ``ManualClock``): every
+    future equals ``query_batch``, and its chunks ran the fused sketch and
+    the fused relay."""
+    from repro_torch.core import QbSIndex, barabasi_albert_graph
+    from repro_torch.serving import ManualClock, QoSClass
+
+    g = barabasi_albert_graph(3000, 3, seed=0, device=cuda_device)
+    idx = QbSIndex.build(g, n_landmarks=8, chunk=16, backend="hybrid",
+                         device=cuda_device)
+    rng = np.random.default_rng(0)
+    us = rng.integers(0, 3000, 120).astype(np.int32)
+    vs = rng.integers(0, 3000, 120).astype(np.int32)
+    want = idx.query_batch(us, vs)
+    clock = ManualClock()
+    st = idx.make_stream(clock=clock, cache_size=256, cache_policy="hub",
+                         cache_admission="reuse",
+                         qos=(QoSClass("interactive", max_wait=0.002, weight=3.0),
+                              QoSClass("batch", max_wait=0.05)))
+    ops.reset_launches()
+    futs = []
+    for rep in range(2):                   # the second pass joins and hits
+        for k in range(0, 120, 15):
+            futs += st.submit_batch(us[k:k + 15], vs[k:k + 15],
+                                    qos=("interactive", "batch")[k // 15 % 2])
+            clock.advance(0.001)
+        clock.advance(0.1)
+    st.drain()
+    launched = dict(LAUNCHES)
+    for f, w in zip(futs, want + want):
+        r = f.result()
+        assert (r.dist, r.d_top) == (w.dist, w.d_top)
+        assert np.array_equal(r.edge_ids, w.edge_ids)
+    assert launched["sketch_batch"] > 0 and launched["hybrid_relay"] > 0
+    assert st.stats["cache_hits"] + st.stats["joined"] > 0
+    st.close()
+
+
+def _bits(t):
+    """uint16 tensors compare through their int16 view, as they index."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+@pytest.mark.cuda
+def test_apply_update_on_the_card_matches_cpu(cuda_device):
+    """Updates on a 257-vertex path with a shortcut: the cut repacks the
+    tables to uint16, and a later insert patches the uint16 tables in place
+    of a repack (written through their int16 view on the card).  The card's
+    tables and answers equal the CPU's, and the source index is unchanged."""
+    from repro_torch.core import QbSIndex, from_edges
+
+    edges = np.asarray([(i, i + 1) for i in range(256)] + [(0, 128)])
+    lms = np.array([0, 128], np.int32)
+    us = np.array([0, 256, 5, 129], np.int32)
+    vs = np.array([256, 128, 248, 127], np.int32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        idx = QbSIndex.build(from_edges(edges, 257, device=dev), landmarks=lms,
+                             chunk=4, backend="hybrid", device=dev)
+        before = [t.clone() for t in idx.packed]
+        cut = idx.apply_update(deletes=[(0, 128)], churn_threshold=1.1)
+        nxt = cut.apply_update(inserts=[(200, 202)], churn_threshold=1.1)
+        assert nxt.packed.label_dist.dtype == torch.uint16
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(before, idx.packed))
+        out.append(([t.cpu() for t in nxt.packed], nxt._lm_dist_host,
+                    nxt.query_batch_arrays(us, vs)))
+    (pc, lc, (dc, mc)), (pg, lg, (dg, mg)) = out
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(pc, pg))
+    assert np.array_equal(lc, lg)
+    assert np.array_equal(dc, dg) and np.array_equal(mc, mg)
