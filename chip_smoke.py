@@ -2,8 +2,9 @@
 each against its plain PyTorch version, drive the main path
 (``QbSIndex.build`` -> ``query_batch``) at full size on every relay backend,
 the dense expansion's path, the live serving tier (stream, replicas,
-metrics), the epoch-versioned edge updates, the baselines and the serving
-CLI, and check the answers.
+metrics), the epoch-versioned edge updates, the multi-device paths (four
+shards on the one card), the baselines and the serving CLI, and check the
+answers.
 
     python3 chip_smoke.py                      # 1.1 M-vertex BA graph, R = 20
     python3 chip_smoke.py --n-vertices 100000  # a quicker rehearsal
@@ -15,7 +16,10 @@ Phases (each raises on failure; nothing is caught):
 3. each kernel against its plain version on the card, exact equality,
    with kernel / plain / library-call times (median of 30 timed runs):
    ``minplus``; ``sketch_batch`` at B in {32, 256}, R in {20, 64}, uint8
-   and uint16 tables, beside the PyTorch ops it replaced (not one call);
+   and uint16 tables, and at the multi-device paths' own shapes (B = 32,
+   R = 20 on int32 tables, as the sharded lanes widen them; B = 8, R = 20
+   uint8, a chunk split four ways), beside the PyTorch ops it replaced
+   (not one call);
    ``bitmap_expand_packed``; ``bitmap_expand`` beside ``torch.matmul`` on
    f32 casts and ``torch._int_mm`` (cuBLASLt's int8 GEMM) on the int8 views;
    the fused ``hybrid_relay`` is checked on the real graph once the hybrid
@@ -55,6 +59,16 @@ Phases (each raises on failure; nothing is caught):
    equal to a fresh build of the new graph on tables and answers with the
    source index unchanged, and an epoch straddle (``submit_update`` with a
    chunk in flight: old futures answer for epoch 0, later ones for 1);
+   the multi-device paths on a mesh of every visible card when there are
+   several, else on ``Mesh([cuda] * 4)`` (four shards of the one card),
+   each counted the same way: ``sharded`` (``distributed_build_labelling`` in the bool, bitmap
+   and pull exchanges, each equal to the hybrid index's scheme, not
+   counted; then ``ShardedIndex.build`` and ``query_batch`` on every lane,
+   equal to the hybrid answers, ``sketch_batch`` only; ``max_levels`` and
+   ``max_chain`` sized from the landmarks' measured eccentricity), then
+   ``mesh_service`` (``ServingService(idx_h, mesh=...)``: general chunks
+   split over the shards, ``sketch_batch`` and ``hybrid_relay``) and
+   ``scale_serve`` (one chunk of general pairs, ``sketch_batch`` only);
 6. 8 sampled answers against a scipy BFS oracle; the baselines on the
    card: Bi-BFS on 32 general pairs and the two-BFS oracle on 2 pairs of
    the 1.1 M-vertex graph must give the QbS answers, and PPL (with and
@@ -63,7 +77,7 @@ Phases (each raises on failure; nothing is caught):
    agree with a QbS index of the same graph;
 7. the serving CLI (``repro_torch.launch.serve.main``) in process, at
    ``--n 20000`` on the ``ba`` graph (through ``--replicas 2
-   --metrics-port 0``) and the ``cliques`` graph;
+   --metrics-port 0``, and with ``--shards 1``) and the ``cliques`` graph;
 8. the kernels' JSON line, then the device line last.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero without
@@ -179,9 +193,10 @@ def measure(name, fns, reps=30, calls=50, profiled=200):
 def sketch_inputs(rng, b, r, dtype, dev, INF):
     """(lu, lv, meta_w, meta_dist) on the card, packed into ``dtype`` (the
     dtype max as the INF sentinel): label rows with 20% INF entries, a
-    random meta graph (weights 1-3 x 2 for uint8, x 50 for uint16) and its
-    APSP, as the labelling would give them."""
-    hi, scale = (400, 50) if dtype == np.uint16 else (40, 2)
+    random meta graph (weights 1-3 x 2 for uint8, x 50 for uint16 and
+    int32) and its APSP, as the labelling would give them; int32 keeps INF
+    as its sentinel, as ``widen_dist`` leaves it."""
+    hi, scale = (40, 2) if dtype == np.uint8 else (400, 50)
     tabs = []
     for _ in range(2):
         x = rng.integers(0, hi, size=(b, r))
@@ -195,7 +210,7 @@ def sketch_inputs(rng, b, r, dtype, dev, INF):
     for k in range(r):
         d = np.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
     tabs += [w, np.minimum(d, INF)]
-    sent = np.iinfo(dtype).max
+    sent = INF if dtype == np.int32 else np.iinfo(dtype).max
     return [torch.as_tensor(np.where(x >= INF, sent, x).astype(dtype)).to(dev)
             for x in tabs]
 
@@ -225,7 +240,10 @@ def check_sketch_batch(dev, ref, INF, rng):
     for b, r, dtype in [(32, 20, np.uint8), (32, 20, np.uint16),
                         (256, 20, np.uint8), (256, 20, np.uint16),
                         (32, 64, np.uint8), (32, 64, np.uint16),
-                        (256, 64, np.uint8), (256, 64, np.uint16)]:
+                        (256, 64, np.uint8), (256, 64, np.uint16),
+                        # the sharded lanes' widened tables, and a 32-row
+                        # chunk split over four shards
+                        (32, 20, np.int32), (8, 20, np.uint8)]:
         lu, lv, mw, md = sketch_inputs(rng, b, r, dtype, dev, INF)
         got = sketch_batch_cuda(lu, lv, mw, md)
         want = ref.sketch_batch_ref(lu, lv, mw, md)
@@ -552,10 +570,11 @@ def run_backend(core, ops, g, backend, us, vs, n_landmarks, chunk,
     return idx, res
 
 
-def time_lanes(idx, ops, us, vs, lanes, chunk):
+def time_lanes(idx, ops, us, vs, lanes, chunk, label=None):
     """Per-lane serving time and kernel launches per chunk: each lane's
     queries alone through the service (after the main path's count)."""
     svc = idx.make_service()
+    label = label or idx.backend
     for name, sel in lanes.items():
         if not sel.size:
             continue
@@ -567,7 +586,7 @@ def time_lanes(idx, ops, us, vs, lanes, chunk):
         dt = time.perf_counter() - t0
         n_chunks = -(-sel.size // chunk)
         per_chunk = {k: (ops.LAUNCHES[k] - before[k]) / n_chunks for k in before}
-        log(f"[{idx.backend}] lane {name}: {sel.size} queries, {n_chunks} "
+        log(f"[{label}] lane {name}: {sel.size} queries, {n_chunks} "
             f"chunks, {dt / n_chunks * 1e3:.1f} ms per chunk; kernel launches "
             f"per chunk {per_chunk}")
 
@@ -627,17 +646,23 @@ def breakdown(core, idx, us, vs):
         f"reverse rows {rev_rows.numel()}, recover rows {rec_rows.numel()}; "
         + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
 
+    profile_step(idx.backend, lambda: idx.serve_step(us_t, vs_t))
+
+
+def profile_step(label, step, top: int = 8):
+    """One call of ``step`` under torch.profiler: wall time, the device's
+    busy share of it and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        idx.serve_step(us_t, vs_t)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = device_events(prof)
     dev_total = sum(_device_us(e) for e in events)
-    log(f"[{idx.backend}] profiled serve_step: wall {wall * 1e3:.1f} ms, device "
+    log(f"[{label}] profiled serve_step: wall {wall * 1e3:.1f} ms, device "
         f"busy {dev_total / 1e3:.1f} ms ({dev_total / 1e4 / wall:.1f}% of wall)")
-    for e in sorted(events, key=lambda e: -_device_us(e))[:8]:
+    for e in sorted(events, key=lambda e: -_device_us(e))[:top]:
         log(f"    {_device_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
@@ -1056,6 +1081,178 @@ def update_phase(core, ops, idx_h, us, vs, res_h, lms, chunk):
     return counts
 
 
+def search_depth(core, idx_h) -> int:
+    """``max_levels`` and ``max_chain`` for the sharded lanes, from the
+    measured eccentricity of the landmarks: on a connected graph every
+    distance, and so every level, sweep and recover chain, is at most
+    twice the largest landmark distance."""
+    lm = core.widen_dist(idx_h.packed.lm_dist)
+    if not bool((lm[0] < core.INF).all()):
+        raise AssertionError("the graph is not connected; the depth bound needs it")
+    return 2 * int(lm.max()) + 1
+
+
+def sharded_phase(core, ops, g, idx_h, us, vs, res_h, lanes, chunk, mesh,
+                  breakdown=False):
+    """The vertex-sharded paths on ``mesh``: ``distributed_build_labelling``
+    in the three frontier modes, each equal to the hybrid index's scheme;
+    then the counted path: ``ShardedIndex.build`` (bitmap exchange, born
+    sharded) and ``query_batch`` over the queries, every answer equal to the
+    hybrid index's; the counters are set to 0 just before the build and read
+    just after the batch.  Then each lane's ms per chunk (not counted) and,
+    with ``breakdown``, a torch.profiler trace of one general chunk."""
+    from repro_torch.core.distributed import distributed_build_labelling
+    from repro_torch.core.sharded import ShardedIndex
+
+    lms = idx_h.scheme.landmarks.cpu().numpy()
+    depth = search_depth(core, idx_h)
+    for mode in ("bool", "bitmap", "pull"):
+        sync_all()
+        t0 = time.perf_counter()
+        sc = distributed_build_labelling(g, lms, mesh, frontier_mode=mode)
+        sync_all()
+        dt = time.perf_counter() - t0
+        for f in sc._fields:
+            if not torch.equal(getattr(sc, f), getattr(idx_h.scheme, f)):
+                raise AssertionError(f"distributed labelling ({mode}) disagrees "
+                                     f"with the hybrid index on {f}")
+        log(f"[sharded] distributed_build_labelling over {mesh.n_shards} shards, "
+            f"{mode} exchange: {dt:.2f} s; the scheme == the hybrid index's")
+    sync_all()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sh = ShardedIndex.build(g, landmarks=lms, mesh=mesh, frontier_mode="bitmap",
+                            chunk=chunk, max_levels=depth, max_chain=depth)
+    sync_all()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sh.query_batch(us, vs)
+    sync_all()
+    dt = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    same_answers(res, res_h, "sharded against hybrid")
+    info = sh.sharded_size_bytes()
+    log(f"[sharded] ShardedIndex.build over {info['n_shards']} shards "
+        f"({sh.labels.pack_dtype}, v_loc {sh.labels.v_loc}, e_max {sh.part.e_max}, "
+        f"max_levels = max_chain = {depth}): {t_build:.2f} s; per shard "
+        f"{info['per_device_bytes'] / 1e6:.1f} MB (labels "
+        f"{info['per_device_label_bytes'] / 1e6:.1f} MB + CSR "
+        f"{info['per_device_csr_bytes'] / 1e6:.1f} MB) = "
+        f"{info['per_device_frac']:.3f} of the replicated "
+        f"{info['replicated_bytes'] / 1e6:.1f} MB")
+    log(f"[sharded] query_batch of {len(us)} queries == hybrid: {dt:.2f} s, "
+        f"{len(us) / dt:.1f} queries/s; launches {counts}")
+    time_lanes(sh, ops, us, vs, lanes, chunk, label="sharded")
+    if breakdown:
+        first = lanes["general"][:chunk]
+        us_t = torch.as_tensor(us[first], device=sh.device)
+        vs_t = torch.as_tensor(vs[first], device=sh.device)
+        profile_step("sharded", lambda: sh.serve_step(us_t, vs_t), top=12)
+    return counts
+
+
+def mesh_service_phase(ops, idx_h, us, vs, res_h, mesh):
+    """The batch-sharded service on the hybrid index: ``ServingService(idx_h,
+    mesh=mesh)`` splits every general chunk over the mesh's shards (the index
+    replicated per device); every answer equal to the hybrid index's.  The
+    counters are set to 0 just before ``query_batch`` and read just after."""
+    import warnings
+
+    from repro_torch.serving import ServingService
+
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        svc = ServingService(idx_h, mesh=mesh)
+    rounding = (f"chunk {idx_h.chunk} -> {svc.chunk}" if warned
+                else f"chunk {svc.chunk} divides over {mesh.n_shards} shards, not rounded")
+    sync_all()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = svc.query_batch(us, vs)
+    sync_all()
+    dt = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    same_answers(res, res_h, "mesh service against hybrid")
+    log(f"[mesh_service] {len(us)} queries == hybrid over {mesh.n_shards} "
+        f"shards: {dt:.2f} s, {len(us) / dt:.1f} queries/s; {rounding}; "
+        f"chunk_roundings {svc.stats['chunk_roundings']}; launches {counts}")
+    return counts
+
+
+def scale_serve_phase(core, ops, g, idx_h, us, vs, res_h, rows, mesh):
+    """``scale_serve`` (edge-aligned int16 source labels) on one chunk of
+    general pairs with the hybrid index's scheme; distances and undirected
+    SPG edges equal to the hybrid index's answers.  The counters are set to
+    0 just before the call and read just after."""
+    from repro_torch.core.scale_serve import scale_serve
+
+    depth = search_depth(core, idx_h)
+    sync_all()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pairs, dist = scale_serve(g, idx_h.scheme, mesh, us[rows], vs[rows],
+                              max_levels=depth, max_chain=depth)
+    sync_all()
+    dt = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    src = g.src.cpu().numpy()
+    dst = g.dst.cpu().numpy()
+    for k, i in enumerate(rows):
+        r = res_h[i]
+        want = {(int(min(a, b)), int(max(a, b)))
+                for a, b in zip(src[r.edge_ids], dst[r.edge_ids])}
+        if int(dist[k]) != r.dist or pairs[k] != want:
+            raise AssertionError(f"scale_serve disagrees with hybrid on ({r.u}, {r.v})")
+    log(f"[scale_serve] {rows.size} general pairs over {mesh.n_shards} shards "
+        f"== hybrid (dist and SPG edges): {dt:.2f} s including the host "
+        f"partition; launches {counts}")
+    return counts
+
+
+def graph_and_queries(core, n_vertices, n_random, n_landmarks=20):
+    """The 1.1 M-vertex graph and the query batch: ``n_random`` random
+    pairs, 8 landmark pairs, 8 one-sided pairs and 2 ``u == v``."""
+    t0 = time.perf_counter()
+    g = core.barabasi_albert_graph(n_vertices, 3, seed=0)
+    log(f"graph: BA({n_vertices}, 3), {g.n_edges} edge slots, "
+        f"{time.perf_counter() - t0:.1f} s to generate")
+    lms = core.select_landmarks(g, n_landmarks)
+    is_lm = np.zeros((g.n_vertices,), bool)
+    is_lm[lms] = True
+    rng = np.random.default_rng(1)
+    us = rng.integers(0, g.n_vertices, size=n_random)
+    vs = rng.integers(0, g.n_vertices, size=n_random)
+    non = np.flatnonzero(~is_lm)
+    pick = rng.choice(non, size=10, replace=False)
+    lm_a, lm_b = rng.choice(lms, size=8), rng.choice(lms, size=8)
+    lm_b = np.where(lm_a == lm_b, lms[(np.searchsorted(lms, lm_b) + 1) % n_landmarks], lm_b)
+    us = np.concatenate([us, lm_a, pick[:8], pick[8:10]]).astype(np.int32)
+    vs = np.concatenate([vs, lm_b, rng.choice(lms, size=8), pick[8:10]]).astype(np.int32)
+    lane = np.full((us.size,), "general", object)
+    lane[(is_lm[us] & is_lm[vs])] = "landmark_pair"
+    lane[is_lm[us] ^ is_lm[vs]] = "one_sided"
+    lane[us == vs] = "trivial"
+    lanes = {k: np.flatnonzero(lane == k) for k in
+             ("general", "landmark_pair", "one_sided", "trivial")}
+    log("queries: " + ", ".join(f"{k} {v.size}" for k, v in lanes.items()))
+    return g, lms, rng, us, vs, lanes
+
+
+def shard_mesh(core):
+    """The multi-device paths' mesh: every visible card when there are
+    several, else four shards of the one card."""
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        return core.Mesh([torch.device("cuda", i) for i in range(n_cards)])
+    return core.Mesh([torch.device("cuda", 0)] * 4)
+
+
+def sync_all() -> None:
+    """Wait for every card (a mesh may span several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-vertices", type=int, default=1_100_000)
@@ -1094,31 +1291,9 @@ def main() -> int:
     rows = check_kernels(dev, ref, INF)
 
     # phase 4: the main path
-    t0 = time.perf_counter()
-    g = core.barabasi_albert_graph(args.n_vertices, 3, seed=0)
-    log(f"graph: BA({args.n_vertices}, 3), {g.n_edges} edge slots, "
-        f"{time.perf_counter() - t0:.1f} s to generate")
+    g, lms, rng, us, vs, lanes = graph_and_queries(core, args.n_vertices,
+                                                   args.n_random)
     n_landmarks, chunk = 20, 32
-    lms = core.select_landmarks(g, n_landmarks)
-    is_lm = np.zeros((g.n_vertices,), bool)
-    is_lm[lms] = True
-    rng = np.random.default_rng(1)
-    us = rng.integers(0, g.n_vertices, size=args.n_random)
-    vs = rng.integers(0, g.n_vertices, size=args.n_random)
-    non = np.flatnonzero(~is_lm)
-    pick = rng.choice(non, size=10, replace=False)
-    lm_a, lm_b = rng.choice(lms, size=8), rng.choice(lms, size=8)
-    lm_b = np.where(lm_a == lm_b, lms[(np.searchsorted(lms, lm_b) + 1) % n_landmarks], lm_b)
-    us = np.concatenate([us, lm_a, pick[:8], pick[8:10]]).astype(np.int32)
-    vs = np.concatenate([vs, lm_b, rng.choice(lms, size=8), pick[8:10]]).astype(np.int32)
-    n = us.size
-    lane = np.full((n,), "general", object)
-    lane[(is_lm[us] & is_lm[vs])] = "landmark_pair"
-    lane[is_lm[us] ^ is_lm[vs]] = "one_sided"
-    lane[us == vs] = "trivial"
-    lanes = {k: np.flatnonzero(lane == k) for k in
-             ("general", "landmark_pair", "one_sided", "trivial")}
-    log("queries: " + ", ".join(f"{k} {v.size}" for k, v in lanes.items()))
 
     # each path once, with the launch counters set to 0 just before it and
     # read just after
@@ -1176,9 +1351,23 @@ def main() -> int:
     launches["stream"] = stream_phase(ops, idx_h, us, vs, res_h, lanes["general"])
     launches["replicas"] = replicas_phase(ops, idx_h, us, vs, res_h)
     launches["update"] = update_phase(core, ops, idx_h, us, vs, res_h, lms, chunk)
+
+    # the multi-device paths
+    mesh = shard_mesh(core)
+    log(f"mesh: {mesh}")
+    launches["sharded"] = sharded_phase(core, ops, g, idx_h, us, vs, res_h, lanes,
+                                        chunk, mesh, args.breakdown)
+    launches["mesh_service"] = mesh_service_phase(ops, idx_h, us, vs, res_h, mesh)
+    launches["scale_serve"] = scale_serve_phase(core, ops, g, idx_h, us, vs, res_h,
+                                                lanes["general"][:chunk], mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
     for path, names in (("stream", ("sketch_batch", "hybrid_relay")),
                         ("replicas", ("sketch_batch", "hybrid_relay")),
-                        ("update", ("hybrid_relay",))):
+                        ("update", ("hybrid_relay",)),
+                        ("sharded", ("sketch_batch",)),
+                        ("mesh_service", ("sketch_batch", "hybrid_relay")),
+                        ("scale_serve", ("sketch_batch",))):
         for name, count in launches[path].items():
             if (name in names) != (count > 0):
                 raise AssertionError(f"kernel {name} was launched {count} times "
@@ -1206,10 +1395,12 @@ def main() -> int:
     from repro_torch.launch import serve
     for graph, backend, extra in (("ba", "hybrid", ["--replicas", "2",
                                                     "--metrics-port", "0"]),
-                                  ("cliques", "csr", [])):
+                                  ("cliques", "csr", []),
+                                  ("ba", "sharded", ["--shards", "1"])):
         t0 = time.perf_counter()
         serve.main(["--graph", graph, "--n", "20000", "--landmarks", "20",
-                    "--queries", "200", "--backend", backend, *extra])
+                    "--queries", "200", *extra]
+                   + ([] if backend == "sharded" else ["--backend", backend]))
         log(f"[cli] {graph} on {backend}: {time.perf_counter() - t0:.1f} s")
 
     # phase 8: results

@@ -1,4 +1,5 @@
 """Query-by-Sketch core in PyTorch: the counterparts of ``repro.core``."""
+from .distributed import ShardedLabels, distributed_build_sharded
 from .frontier import (
     FrontierEngine,
     HubSplit,
@@ -32,6 +33,7 @@ from .labelling import (
     meta_apsp,
     update_labelling,
 )
+from .mesh import Mesh
 from .packing import (
     PackedLabels,
     choose_pack_dtype,
@@ -44,6 +46,7 @@ from .packing import (
     widen_dist,
 )
 from .qbs import QbSIndex, SPGResult
+from .sharded import ShardedIndex
 from .search import Query, SearchContext, SearchResult, guided_search, make_search_context
 from .sketch import SketchBatch, compute_sketch_batch, d_top_only
 
@@ -61,6 +64,7 @@ __all__ = [
     "pack_labelling", "packed_size_bytes", "patch_packed", "unpack_bits",
     "widen_dist",
     "QbSIndex", "SPGResult",
+    "Mesh", "ShardedIndex", "ShardedLabels", "distributed_build_sharded",
     "Query", "SearchContext", "SearchResult", "guided_search",
     "make_search_context",
     "SketchBatch", "compute_sketch_batch", "d_top_only",

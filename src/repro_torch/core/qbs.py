@@ -146,7 +146,7 @@ def _landmark_onesided_lanes(engine, lm_dist, src, dst, rev_edge, roots,
 class QbSIndex:
     """Labelling, packed tables and relay engines of one graph on one device."""
 
-    is_sharded = False   # one device; the vertex-sharded index is not ported
+    is_sharded = False   # one device; ``core.sharded.ShardedIndex`` shards
 
     def __init__(self, graph: Graph, scheme: LabellingScheme, *,
                  max_levels: int = 512, max_chain: int = 512, chunk: int = 32,
@@ -298,11 +298,27 @@ class QbSIndex:
 
     @classmethod
     def build(cls, graph: Graph, n_landmarks: int = 20,
-              landmarks: np.ndarray | None = None, *, device=None, **kw):
+              landmarks: np.ndarray | None = None, *, device=None,
+              sharded=None, **kw):
         """Build an index on ``device`` (the CUDA card unless named; raises
         without one).  ``kw`` goes to ``QbSIndex``: ``backend``,
         ``engine_opts`` (``n_hubs``), ``chunk``, ``max_levels``,
-        ``max_chain``."""
+        ``max_chain``.
+
+        ``sharded=`` builds the vertex-sharded ``core.sharded.ShardedIndex``
+        instead: a ``core.mesh.Mesh``, a device count (the first N CUDA
+        devices) or ``True`` (every CUDA device).  Its labels are born
+        sharded on that mesh, every lane answers from the shards, and it
+        takes its own serving knobs (``max_levels``, ``max_chain``,
+        ``chunk``), not ``device`` or ``backend``."""
+        if sharded is not None and sharded is not False:
+            from .sharded import ShardedIndex
+            if device is not None:
+                raise ValueError("a sharded index runs on its mesh: pass the "
+                                 "devices through sharded=, not device=")
+            return ShardedIndex.build(
+                graph, n_landmarks=n_landmarks, landmarks=landmarks,
+                mesh=None if sharded is True else sharded, **kw)
         dev = resolve_device(device)
         graph = graph.to(dev)
         if landmarks is None:

@@ -8,12 +8,13 @@ batched shortest-path-graph queries.  Counterpart of
 
 ``--backend`` picks the relay (``segment``, ``csr`` or ``hybrid``);
 ``--device`` the device (the CUDA card by default; ``cpu`` runs each
-kernel's plain PyTorch version).  ``--replicas N`` serves through a
-consistent-hash ``ReplicaRouter`` over N streaming replicas (all on the one
-device), and ``--metrics-port P`` exports the Prometheus scrape endpoint on
-``127.0.0.1:P`` (0 picks a free port; implies one replica).  The
-reference's ``--shards`` (the vertex-sharded multi-GPU index) is not ported
-yet: given a value, it exits with a message instead of serving another way.
+kernel's plain PyTorch version).  ``--shards N`` builds the vertex-sharded
+index instead (labels born sharded over an N-device mesh, every lane served
+from the shards): the first N CUDA devices, or N shards on ``--device``
+when one is named.  ``--replicas N`` serves through a consistent-hash
+``ReplicaRouter`` over N streaming replicas (all on the one device), and
+``--metrics-port P`` exports the Prometheus scrape endpoint on
+``127.0.0.1:P`` (0 picks a free port; implies one replica).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..core import (
 )
 from ..core.frontier import BACKENDS
 from ..core.graph import resolve_device
+from ..core.mesh import Mesh
 
 
 def build_graph(kind: str, n: int, seed: int, device=None):
@@ -58,7 +60,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain PyTorch versions)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="not ported yet (vertex-sharded multi-GPU index)")
+                    help="build the vertex-sharded index over this many "
+                         "devices (0 = replicated single-device index)")
     ap.add_argument("--replicas", type=int, default=0,
                     help="serve through a consistent-hash ReplicaRouter over "
                          "this many streaming replicas (0 = direct index "
@@ -68,25 +71,37 @@ def main(argv: list[str] | None = None) -> None:
                          "(0 = pick an ephemeral port); implies at least one "
                          "streaming replica")
     args = ap.parse_args(argv)
-    if args.shards:
-        ap.error("--shards is not ported to the PyTorch package yet; the JAX "
-                 "package's repro.launch.serve serves it")
 
     dev = resolve_device(None if args.device == "cuda" else args.device)
     g = build_graph(args.graph, args.n, args.seed, device=dev)
     print(f"[serve] graph {args.graph}: V={g.n_vertices} E={g.n_edges // 2}")
 
     t0 = time.perf_counter()
-    idx = QbSIndex.build(g, n_landmarks=args.landmarks, chunk=args.chunk,
-                         backend=args.backend, device=dev)
-    t1 = time.perf_counter()
-    sz = labelling_size_bytes(idx.scheme)
-    psz = packed_size_bytes(idx.packed)
-    print(f"[serve] labelling built in {t1 - t0:.2f}s; "
-          f"size(L)={sz['label_bytes'] / 1e6:.2f}MB "
-          f"meta_edges={sz['n_meta_edges']}")
-    print(f"[serve] packed tables: {psz['packed_bytes'] / 1e6:.2f}MB "
-          f"({psz['dtype']}, {psz['ratio']:.1f}x smaller than int32)")
+    if args.shards:
+        mesh = args.shards if args.device == "cuda" else Mesh([dev] * args.shards)
+        idx = QbSIndex.build(g, n_landmarks=args.landmarks, chunk=args.chunk,
+                             sharded=mesh)
+        t1 = time.perf_counter()
+        info = idx.sharded_size_bytes()
+        print(f"[serve] sharded labelling built in {t1 - t0:.2f}s over "
+              f"{info['n_shards']} devices ({idx.labels.pack_dtype})")
+        print(f"[serve] per-device bytes: "
+              f"{info['per_device_bytes'] / 1e6:.2f}MB "
+              f"(labels {info['per_device_label_bytes'] / 1e6:.2f}MB + CSR "
+              f"{info['per_device_csr_bytes'] / 1e6:.2f}MB) = "
+              f"{info['per_device_frac']:.2f}x of the replicated "
+              f"{info['replicated_bytes'] / 1e6:.2f}MB")
+    else:
+        idx = QbSIndex.build(g, n_landmarks=args.landmarks, chunk=args.chunk,
+                             backend=args.backend, device=dev)
+        t1 = time.perf_counter()
+        sz = labelling_size_bytes(idx.scheme)
+        psz = packed_size_bytes(idx.packed)
+        print(f"[serve] labelling built in {t1 - t0:.2f}s; "
+              f"size(L)={sz['label_bytes'] / 1e6:.2f}MB "
+              f"meta_edges={sz['n_meta_edges']}")
+        print(f"[serve] packed tables: {psz['packed_bytes'] / 1e6:.2f}MB "
+              f"({psz['dtype']}, {psz['ratio']:.1f}x smaller than int32)")
 
     rng = np.random.default_rng(args.seed)
     us = rng.integers(0, g.n_vertices, size=args.queries)

@@ -14,11 +14,13 @@ import sys
 import numpy as np
 import pytest
 
-from repro.core import baselines as jb
-from repro.core import graph as jg
-from repro_torch.core import QbSIndex
-from repro_torch.core import baselines as tb
-from repro_torch.core import graph as tg
+torch = pytest.importorskip("torch")
+
+from repro.core import baselines as jb  # noqa: E402
+from repro.core import graph as jg  # noqa: E402
+from repro_torch.core import QbSIndex  # noqa: E402
+from repro_torch.core import baselines as tb  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
 
 BACKENDS = ("segment", "csr", "hybrid")
 
@@ -160,17 +162,23 @@ def test_serve_cli_matches_reference(graph, capsys, monkeypatch):
 @pytest.mark.parametrize("flag", [["--shards", "2"], ["--replicas", "2"],
                                   ["--metrics-port", "0"]])
 def test_serve_cli_refuses_unported_modes(flag, capsys):
-    """``--shards`` (the multi-GPU index) is not ported and exits with a
-    message; ``--replicas`` and ``--metrics-port`` are ported and serve
-    through a ``ReplicaRouter``."""
+    """Every mode is ported now: ``--shards`` builds the vertex-sharded
+    index (here two shards on the CPU) and answers as the replicated index
+    does; ``--replicas`` and ``--metrics-port`` serve through a
+    ``ReplicaRouter``."""
     from repro_torch.launch import serve as tserve
 
     argv = ["--n", "50", "--queries", "8", "--device", "cpu"] + flag
     if flag[0] == "--shards":
-        with pytest.raises(SystemExit) as e:
-            tserve.main(argv)
-        assert e.value.code != 0
-        assert "not ported" in capsys.readouterr().err
+        tserve.main(argv)
+        out = capsys.readouterr().out.splitlines()
+        tserve.main(argv[:-2])
+        plain = capsys.readouterr().out.splitlines()
+        assert re.fullmatch(r"\[serve\] sharded labelling built in \d+\.\d+s over "
+                            r"2 devices \(uint8\)", out[1])
+        assert out[2].startswith("[serve] per-device bytes: ")
+        assert out[0] == plain[0] and out[-1] == plain[-1]
+        assert out[-1].startswith("[serve] dist: ")
     else:
         tserve.main(argv)
         out = capsys.readouterr().out

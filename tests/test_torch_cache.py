@@ -11,20 +11,22 @@ answers the same batches as the reference's service, with equal
 import numpy as np
 import pytest
 
-from repro.core import QbSIndex as JIndex
-from repro.core import gnp_random_graph as j_gnp
-from repro.serving import ResultCache as JCache
-from repro.serving import ServingService as JService
-from repro.serving import round_chunk_to_shards as j_round
-from repro.serving.service import _pack_result as j_pack
-from repro.serving.service import _unpack_result as j_unpack
-from repro_torch.core import QbSIndex as TIndex
-from repro_torch.core import gnp_random_graph as t_gnp
-from repro_torch.serving import ResultCache as TCache
-from repro_torch.serving import ServingService as TService
-from repro_torch.serving import round_chunk_to_shards as t_round
-from repro_torch.serving.service import _pack_result as t_pack
-from repro_torch.serving.service import _unpack_result as t_unpack
+torch = pytest.importorskip("torch")
+
+from repro.core import QbSIndex as JIndex  # noqa: E402
+from repro.core import gnp_random_graph as j_gnp  # noqa: E402
+from repro.serving import ResultCache as JCache  # noqa: E402
+from repro.serving import ServingService as JService  # noqa: E402
+from repro.serving import round_chunk_to_shards as j_round  # noqa: E402
+from repro.serving.service import _pack_result as j_pack  # noqa: E402
+from repro.serving.service import _unpack_result as j_unpack  # noqa: E402
+from repro_torch.core import QbSIndex as TIndex  # noqa: E402
+from repro_torch.core import gnp_random_graph as t_gnp  # noqa: E402
+from repro_torch.serving import ResultCache as TCache  # noqa: E402
+from repro_torch.serving import ServingService as TService  # noqa: E402
+from repro_torch.serving import round_chunk_to_shards as t_round  # noqa: E402
+from repro_torch.serving.service import _pack_result as t_pack  # noqa: E402
+from repro_torch.serving.service import _unpack_result as t_unpack  # noqa: E402
 
 V = 45
 
@@ -207,15 +209,23 @@ def test_service_cache_policies_match_reference(pair, config):
     assert st.stats == sj.stats
 
 
-def test_service_validation_and_install_guards(pair):
+def test_service_validation_and_install_guards(pair, monkeypatch):
+    from repro_torch.core import Mesh
+
     _, tidx = pair
     for bad in (dict(cache_size=4, cache_policy="lfu"),
                 dict(cache_size=4, cache_admission="never")):
         with pytest.raises(ValueError, match="unknown"):
             TService(tidx, **bad)
-    for multi in (dict(devices=1), dict(mesh=object())):
-        with pytest.raises(ValueError, match="item 12"):
-            TService(tidx, **multi)
+    # the batch-sharded mode: a device count means CUDA cards, a Mesh runs
+    # where its devices are
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        for multi in (dict(devices=1), dict(mesh=2)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                TService(tidx, **multi)
+    meshed = TService(tidx, mesh=Mesh(["cpu"] * 2))
+    assert meshed._n_shards == 2 and meshed.chunk % 2 == 0
     svc = tidx.make_service(cache_size=4)
     with pytest.raises(ValueError, match="not ahead"):
         svc.install_index(tidx)              # same epoch: a stale install

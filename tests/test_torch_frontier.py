@@ -12,13 +12,14 @@ the depths are int32.
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import frontier as jf
-from repro.core import graph as jg
-from repro_torch.core import frontier as tf
-from repro_torch.core import graph as tg
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import frontier as jf  # noqa: E402
+from repro.core import graph as jg  # noqa: E402
+from repro_torch.core import frontier as tf  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
 
 INF = jg.INF
 

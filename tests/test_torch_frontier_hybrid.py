@@ -18,16 +18,17 @@ import functools
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import frontier as jf
-from repro.core import graph as jg
-from repro_torch.core import frontier as tf
-from repro_torch.core import graph as tg
-from repro_torch.core.packing import pack_bits, unpack_bits
-from repro_torch.kernels import frontier as kf
-from repro_torch.kernels import ops
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import frontier as jf  # noqa: E402
+from repro.core import graph as jg  # noqa: E402
+from repro_torch.core import frontier as tf  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core.packing import pack_bits, unpack_bits  # noqa: E402
+from repro_torch.kernels import frontier as kf  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 
 def _graphs():

@@ -9,13 +9,14 @@ dtype choice, sentinel encoding and bit-word layout bit for bit.
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import graph as jg
-from repro.core import packing as jp
-from repro_torch.core import graph as tg
-from repro_torch.core import packing as tp
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as jg  # noqa: E402
+from repro.core import packing as jp  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core import packing as tp  # noqa: E402
 
 INF = jg.INF
 

@@ -11,7 +11,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -67,10 +68,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.convert import graph_from_numpy, index_from_numpy
     from repro_torch.core import QbSIndex, build_labelling, from_edges, gnp_random_graph
     from repro_torch.core import baselines
+    from repro_torch.core.scale_serve import scale_serve
+    from repro_torch.core.sharded import ShardedIndex
     from repro_torch.launch import serve
+    from repro_torch.serving import ServingService
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = gnp_random_graph(20, 3.0, seed=1, device="cpu")
+    idx = QbSIndex.build(g, n_landmarks=2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arrays = [t.numpy() for t in g]
     for call in (lambda: gnp_random_graph(20, 3.0, seed=1),
                  lambda: from_edges(np.array([[0, 1]]), 2),
@@ -83,6 +88,41 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: baselines.bibfs_spg_batch(g, [0], [5]),
                  lambda: serve.main(["--n", "40", "--queries", "2"]),
                  lambda: serve.main(["--n", "40", "--queries", "2",
-                                     "--replicas", "2", "--metrics-port", "0"])):
+                                     "--replicas", "2", "--metrics-port", "0"]),
+                 lambda: ShardedIndex.build(g, n_landmarks=2),
+                 lambda: ShardedIndex.build(g, n_landmarks=2, mesh=1),
+                 lambda: QbSIndex.build(g, n_landmarks=2, sharded=True),
+                 lambda: QbSIndex.build(g, n_landmarks=2, sharded=2),
+                 lambda: scale_serve(g, idx.scheme, None, [0], [5]),
+                 lambda: ServingService(idx, mesh=2),
+                 lambda: ServingService(idx, devices=1),
+                 lambda: idx.make_stream(mesh=1),
+                 lambda: serve.main(["--n", "40", "--queries", "2", "--shards", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_sharded_entry_points_refuse_a_short_mesh(monkeypatch, capsys):
+    """A device count asks for that many visible CUDA devices and raises when
+    fewer are visible; the CLI's ``--shards`` runs on the CPU when
+    ``--device cpu`` names it."""
+    from repro_torch.core import QbSIndex, gnp_random_graph
+    from repro_torch.core.scale_serve import scale_serve
+    from repro_torch.core.sharded import ShardedIndex
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingService
+
+    serve.main(["--n", "40", "--queries", "2", "--shards", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[serve] sharded labelling built in" in out and "over 1 devices" in out
+    g = gnp_random_graph(20, 3.0, seed=1, device="cpu")
+    idx = QbSIndex.build(g, n_landmarks=2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for call in (lambda: ShardedIndex.build(g, n_landmarks=2, mesh=2),
+                 lambda: QbSIndex.build(g, n_landmarks=2, sharded=4),
+                 lambda: scale_serve(g, idx.scheme, 2, [0], [5]),
+                 lambda: ServingService(idx, mesh=2),
+                 lambda: ServingService(idx, devices=3)):
+        with pytest.raises(ValueError, match="devices requested, 1 visible"):
             call()

@@ -13,27 +13,28 @@ versions there.
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core.graph import INF
-from repro.core.packing import pack_bits as j_pack_bits
-from repro.kernels import ops as j_ops
-from repro.kernels import ref as j_ref
-from repro.kernels.frontier import bitmap_expand as j_expand
-from repro.kernels.frontier import bitmap_expand_packed as j_expand_packed
-from repro.kernels.minplus import minplus as j_minplus
-from repro_torch.core.packing import pack_bits
-from repro_torch.kernels import LAUNCHES, ops, ref
-from repro_torch.kernels.frontier import (
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.graph import INF  # noqa: E402
+from repro.core.packing import pack_bits as j_pack_bits  # noqa: E402
+from repro.kernels import ops as j_ops  # noqa: E402
+from repro.kernels import ref as j_ref  # noqa: E402
+from repro.kernels.frontier import bitmap_expand as j_expand  # noqa: E402
+from repro.kernels.frontier import bitmap_expand_packed as j_expand_packed  # noqa: E402
+from repro.kernels.minplus import minplus as j_minplus  # noqa: E402
+from repro_torch.core.packing import pack_bits  # noqa: E402
+from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
+from repro_torch.kernels.frontier import (  # noqa: E402
     bitmap_expand_cuda,
     bitmap_expand_packed_cuda,
     block_shape,
     dense_vector_loads,
     hybrid_relay_cuda,
 )
-from repro_torch.kernels.minplus import minplus_cuda
-from repro_torch.kernels.sketch import sketch_batch_cuda
+from repro_torch.kernels.minplus import minplus_cuda  # noqa: E402
+from repro_torch.kernels.sketch import sketch_batch_cuda  # noqa: E402
 
 
 def _rand_dist(rng, shape):

@@ -13,11 +13,12 @@ import functools
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.core.graph import INF
-from repro_torch.core.packing import pack_bits
-from repro_torch.kernels import LAUNCHES, ops, ref
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.graph import INF  # noqa: E402
+from repro_torch.core.packing import pack_bits  # noqa: E402
+from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
 
 MINPLUS_SHAPES = [(1, 1, 1), (8, 20, 20), (32, 20, 20), (128, 128, 128),
                   (130, 20, 50), (256, 64, 129), (5, 200, 7), (4, 4, 4)]
@@ -215,6 +216,35 @@ def test_uint16_tables_serve_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 3])
+def test_sharded_uint16_tables_serve_on_the_card(cuda_device, shards):
+    """The vertex-sharded index and the batch-sharded service on shards of
+    the one card, with uint16 tables (moved between shards as their int16
+    view): the answers equal the single-device index's on the CPU."""
+    from repro_torch.core import Mesh, QbSIndex, build_labelling, grid_graph
+    from repro_torch.serving import ServingService
+
+    us = np.array([0, 10, 150, 299, 42, 7, 3], np.int32)
+    vs = np.array([299, 290, 150, 0, 257, 298, 5], np.int32)
+    lms = np.array([0, 299], np.int32)
+    kw = dict(chunk=6, max_levels=400, max_chain=400)
+    g = grid_graph(1, 300, device="cpu")
+    want = QbSIndex(g, build_labelling(g, lms, max_levels=400, device="cpu"),
+                    **kw).query_batch_arrays(us, vs)
+    assert want[0][0] == 299
+    g = g.to(cuda_device)
+    mesh = Mesh([cuda_device] * shards)
+    sh = QbSIndex.build(g, landmarks=lms, sharded=mesh, build_max_levels=400, **kw)
+    assert sh.labels.labels_sh[0].dtype == torch.uint16
+    card = QbSIndex(g, build_labelling(g, lms, max_levels=400, device=cuda_device),
+                    **kw)
+    for got in (sh.query_batch_arrays(us, vs),
+                ServingService(card, mesh=mesh).query_arrays(us, vs)):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_bitmap_expand_kernel_unaligned_bases(cuda_device):
     """Rows of 16-byte multiples from a base that is not 16-byte aligned take
     the byte-load path and give the same bits."""
@@ -286,7 +316,7 @@ def _sketch_both(*args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 7, 32])
+@pytest.mark.parametrize("b", [1, 7, 8, 32])
 @pytest.mark.parametrize("r", [1, 2, 5, 20, 33, 64, 130])
 @pytest.mark.parametrize("dtype", ["uint8", "uint16", "int32"])
 def test_sketch_batch_kernel_matches_plain(cuda_device, dtype, r, b):

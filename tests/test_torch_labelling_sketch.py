@@ -11,17 +11,18 @@ boolean.
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import graph as jg
-from repro.core import labelling as jl
-from repro.core import packing as jp
-from repro.core import sketch as jsk
-from repro_torch.core import graph as tg
-from repro_torch.core import labelling as tl
-from repro_torch.core import packing as tp
-from repro_torch.core import sketch as tsk
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as jg  # noqa: E402
+from repro.core import labelling as jl  # noqa: E402
+from repro.core import packing as jp  # noqa: E402
+from repro.core import sketch as jsk  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core import labelling as tl  # noqa: E402
+from repro_torch.core import packing as tp  # noqa: E402
+from repro_torch.core import sketch as tsk  # noqa: E402
 
 CASES = {
     "gnp": (lambda m, **kw: m.gnp_random_graph(45, 3.2, seed=17, **kw), 5),

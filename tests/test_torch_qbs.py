@@ -16,17 +16,17 @@ int32 and SPGs boolean edge masks.
 import numpy as np
 import pytest
 
-import torch
+torch = pytest.importorskip("torch")
 
-from helpers.serving_oracle import assert_bit_identical
+from helpers.serving_oracle import assert_bit_identical  # noqa: E402
 
-from repro.core import QbSIndex as JIndex
-from repro.core import graph as jg
-from repro.core.labelling import build_labelling as j_build_labelling
-from repro_torch.convert import graph_from_numpy, index_from_numpy
-from repro_torch.core import QbSIndex as TIndex
-from repro_torch.core import graph as tg
-from repro_torch.core.labelling import build_labelling as t_build_labelling
+from repro.core import QbSIndex as JIndex  # noqa: E402
+from repro.core import graph as jg  # noqa: E402
+from repro.core.labelling import build_labelling as j_build_labelling  # noqa: E402
+from repro_torch.convert import graph_from_numpy, index_from_numpy  # noqa: E402
+from repro_torch.core import QbSIndex as TIndex  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core.labelling import build_labelling as t_build_labelling  # noqa: E402
 
 SPLIT_EDGES = np.concatenate([
     np.random.default_rng(9).integers(0, 30, size=(50, 2)),

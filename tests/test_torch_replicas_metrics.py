@@ -16,30 +16,32 @@ import urllib.request
 import numpy as np
 import pytest
 
-from repro.core import QbSIndex as JIndex
-from repro.core import gnp_random_graph as j_gnp
-from repro.serving import AdmissionPolicy as JPolicy
-from repro.serving import LatencyHistogram as JHist
-from repro.serving import ManualClock as JClock
-from repro.serving import MetricsRegistry as JRegistry
-from repro.serving import QoSClass as JQoS
-from repro.serving import ReplicaRouter as JRouter
-from repro.serving import merged_latency as j_merged
-from repro.serving.replicas import key_point as j_key_point
-from repro.serving.replicas import mix64 as j_mix64
-from repro_torch.core import QbSIndex as TIndex
-from repro_torch.core import gnp_random_graph as t_gnp
-from repro_torch.launch import serve as t_serve
-from repro_torch.serving import AdmissionPolicy as TPolicy
-from repro_torch.serving import LatencyHistogram as THist
-from repro_torch.serving import ManualClock as TClock
-from repro_torch.serving import MetricsRegistry as TRegistry
-from repro_torch.serving import QoSClass as TQoS
-from repro_torch.serving import ReplicaRouter as TRouter
-from repro_torch.serving import merged_latency as t_merged
-from repro_torch.serving import serve_metrics
-from repro_torch.serving.replicas import key_point as t_key_point
-from repro_torch.serving.replicas import mix64 as t_mix64
+torch = pytest.importorskip("torch")
+
+from repro.core import QbSIndex as JIndex  # noqa: E402
+from repro.core import gnp_random_graph as j_gnp  # noqa: E402
+from repro.serving import AdmissionPolicy as JPolicy  # noqa: E402
+from repro.serving import LatencyHistogram as JHist  # noqa: E402
+from repro.serving import ManualClock as JClock  # noqa: E402
+from repro.serving import MetricsRegistry as JRegistry  # noqa: E402
+from repro.serving import QoSClass as JQoS  # noqa: E402
+from repro.serving import ReplicaRouter as JRouter  # noqa: E402
+from repro.serving import merged_latency as j_merged  # noqa: E402
+from repro.serving.replicas import key_point as j_key_point  # noqa: E402
+from repro.serving.replicas import mix64 as j_mix64  # noqa: E402
+from repro_torch.core import QbSIndex as TIndex  # noqa: E402
+from repro_torch.core import gnp_random_graph as t_gnp  # noqa: E402
+from repro_torch.launch import serve as t_serve  # noqa: E402
+from repro_torch.serving import AdmissionPolicy as TPolicy  # noqa: E402
+from repro_torch.serving import LatencyHistogram as THist  # noqa: E402
+from repro_torch.serving import ManualClock as TClock  # noqa: E402
+from repro_torch.serving import MetricsRegistry as TRegistry  # noqa: E402
+from repro_torch.serving import QoSClass as TQoS  # noqa: E402
+from repro_torch.serving import ReplicaRouter as TRouter  # noqa: E402
+from repro_torch.serving import merged_latency as t_merged  # noqa: E402
+from repro_torch.serving import serve_metrics  # noqa: E402
+from repro_torch.serving.replicas import key_point as t_key_point  # noqa: E402
+from repro_torch.serving.replicas import mix64 as t_mix64  # noqa: E402
 
 V = 40
 JAX = (JRouter, JClock, JQoS, JPolicy, JRegistry)
@@ -219,5 +221,6 @@ def test_cli_replicas_and_metrics_port_on_cpu(capsys, monkeypatch):
     lines = _deterministic_lines(port_out)
     assert len(lines) == 4
     assert lines == _deterministic_lines(ref_out)
-    with pytest.raises(SystemExit):
-        t_serve.main(["--n", "40", "--shards", "2", "--device", "cpu"])
+    # the replica tier over the vertex-sharded index: the same lines
+    t_serve.main(args + ["--shards", "2", "--device", "cpu"])
+    assert _deterministic_lines(capsys.readouterr().out) == lines

@@ -13,18 +13,19 @@ Every comparison is exact, with zero tolerance (int32 and boolean).
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import graph as jg
-from repro.core import search as js
-from repro.core.labelling import build_labelling as j_build
-from repro.core.sketch import compute_sketch_batch as j_sketch
-from repro_torch.core import graph as tg
-from repro_torch.core import search as ts
-from repro_torch.core.labelling import build_labelling as t_build
-from repro_torch.core.sketch import compute_sketch_batch as t_sketch
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as jg  # noqa: E402
+from repro.core import search as js  # noqa: E402
+from repro.core.labelling import build_labelling as j_build  # noqa: E402
+from repro.core.sketch import compute_sketch_batch as j_sketch  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core import search as ts  # noqa: E402
+from repro_torch.core.labelling import build_labelling as t_build  # noqa: E402
+from repro_torch.core.sketch import compute_sketch_batch as t_sketch  # noqa: E402
 
 INF = jg.INF
 EDGES = np.concatenate([np.random.default_rng(4).integers(0, 40, size=(70, 2)),

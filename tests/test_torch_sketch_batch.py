@@ -19,19 +19,20 @@ the plain version on the card (``tests/test_torch_kernels_cuda.py``).
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import graph as jg
-from repro.core import labelling as jl
-from repro.core import packing as jp
-from repro.core import sketch as jsk
-from repro_torch.core import graph as tg
-from repro_torch.core import labelling as tl
-from repro_torch.core import packing as tp
-from repro_torch.core import sketch as tsk
-from repro_torch.kernels import ref
-from repro_torch.kernels.sketch import smem_layout
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as jg  # noqa: E402
+from repro.core import labelling as jl  # noqa: E402
+from repro.core import packing as jp  # noqa: E402
+from repro.core import sketch as jsk  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core import labelling as tl  # noqa: E402
+from repro_torch.core import packing as tp  # noqa: E402
+from repro_torch.core import sketch as tsk  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.sketch import smem_layout  # noqa: E402
 
 INF = jg.INF
 DTYPES = {"uint8": np.uint8, "uint16": np.uint16, "int32": np.int32}

@@ -17,23 +17,25 @@ import time
 import numpy as np
 import pytest
 
-from helpers.serving_oracle import assert_bit_identical
+torch = pytest.importorskip("torch")
 
-from repro.core import QbSIndex as JIndex
-from repro.core import gnp_random_graph as j_gnp
-from repro.serving import AdmissionPolicy as JPolicy
-from repro.serving import ManualClock as JClock
-from repro.serving import QoSClass as JQoS
-from repro.serving import StreamingService as JStream
-from repro_torch.core import QbSIndex as TIndex
-from repro_torch.core import gnp_random_graph as t_gnp
-from repro_torch.serving import AdmissionPolicy as TPolicy
-from repro_torch.serving import ManualClock as TClock
-from repro_torch.serving import QoSClass as TQoS
-from repro_torch.serving import ServingService as TService
-from repro_torch.serving import StreamingService as TStream
-from repro_torch.serving import SystemClock
-from repro_torch.serving.debug import ConcurrencyViolation
+from helpers.serving_oracle import assert_bit_identical  # noqa: E402
+
+from repro.core import QbSIndex as JIndex  # noqa: E402
+from repro.core import gnp_random_graph as j_gnp  # noqa: E402
+from repro.serving import AdmissionPolicy as JPolicy  # noqa: E402
+from repro.serving import ManualClock as JClock  # noqa: E402
+from repro.serving import QoSClass as JQoS  # noqa: E402
+from repro.serving import StreamingService as JStream  # noqa: E402
+from repro_torch.core import QbSIndex as TIndex  # noqa: E402
+from repro_torch.core import gnp_random_graph as t_gnp  # noqa: E402
+from repro_torch.serving import AdmissionPolicy as TPolicy  # noqa: E402
+from repro_torch.serving import ManualClock as TClock  # noqa: E402
+from repro_torch.serving import QoSClass as TQoS  # noqa: E402
+from repro_torch.serving import ServingService as TService  # noqa: E402
+from repro_torch.serving import StreamingService as TStream  # noqa: E402
+from repro_torch.serving import SystemClock  # noqa: E402
+from repro_torch.serving.debug import ConcurrencyViolation  # noqa: E402
 
 V = 45
 JAX = (JStream, JClock, JQoS, JPolicy)

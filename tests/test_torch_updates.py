@@ -14,21 +14,22 @@ does.  Zero tolerance.
 """
 import numpy as np
 import pytest
-import torch
 
-from helpers.serving_oracle import EpochOracle, oracle_spg
+torch = pytest.importorskip("torch")
 
-from repro.core import QbSIndex as JIndex
-from repro.core import graph as jg
-from repro.core.labelling import update_labelling as j_update_labelling
-from repro.core.packing import patch_packed as j_patch_packed
-from repro_torch.convert import index_from_numpy
-from repro_torch.core import QbSIndex as TIndex
-from repro_torch.core import graph as tg
-from repro_torch.core.labelling import affected_landmarks as t_affected
-from repro_torch.core.labelling import update_labelling as t_update_labelling
-from repro_torch.core.packing import patch_packed as t_patch_packed
-from repro_torch.serving import AdmissionPolicy, ManualClock, QoSClass, StreamingService
+from helpers.serving_oracle import EpochOracle, oracle_spg  # noqa: E402
+
+from repro.core import QbSIndex as JIndex  # noqa: E402
+from repro.core import graph as jg  # noqa: E402
+from repro.core.labelling import update_labelling as j_update_labelling  # noqa: E402
+from repro.core.packing import patch_packed as j_patch_packed  # noqa: E402
+from repro_torch.convert import index_from_numpy  # noqa: E402
+from repro_torch.core import QbSIndex as TIndex  # noqa: E402
+from repro_torch.core import graph as tg  # noqa: E402
+from repro_torch.core.labelling import affected_landmarks as t_affected  # noqa: E402
+from repro_torch.core.labelling import update_labelling as t_update_labelling  # noqa: E402
+from repro_torch.core.packing import patch_packed as t_patch_packed  # noqa: E402
+from repro_torch.serving import AdmissionPolicy, ManualClock, QoSClass, StreamingService  # noqa: E402
 
 V = 48
 INF = 1 << 20
