@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, drive the main path
 (``QbSIndex.build`` -> ``query_batch``) at full size on every relay backend,
-the dense expansion's path, the live serving tier (stream, replicas,
-metrics), the epoch-versioned edge updates, the multi-device paths (four
-shards on the one card), the baselines and the serving CLI, and check the
-answers.
+the SPG serve step, the dense expansion's path, the live serving tier
+(stream, replicas, metrics), the epoch-versioned edge updates, the
+multi-device paths (four shards on the one card), the baselines, the
+serving CLI and the LM serving path (``qwen1.5-4b`` at full width), and
+check the answers.
 
     python3 chip_smoke.py                      # 1.1 M-vertex BA graph, R = 20
     python3 chip_smoke.py --n-vertices 100000  # a quicker rehearsal
@@ -36,6 +37,10 @@ Phases (each raises on failure; nothing is caught):
    before each backend's run and read just after (hybrid must launch
    ``sketch_batch`` and ``hybrid_relay``, segment and csr ``sketch_batch``
    only);
+   then the SPG serve step on the hybrid index (``spg_serve_step``):
+   ``make_spg_serve_step`` on one 32-row general chunk and
+   ``serve_spg_batch`` on the 274 queries, each equal to ``query_batch``'s
+   answers; ``sketch_batch`` once per general chunk, ``hybrid_relay``;
 5. the min-plus kernel's path: ``core.sketch.d_top_only`` (one ``minplus``
    launch and nothing else) on the hybrid index's label rows of the
    general pairs, which must equal the fused kernel's d_top and the plain
@@ -78,6 +83,16 @@ Phases (each raises on failure; nothing is caught):
 7. the serving CLI (``repro_torch.launch.serve.main``) in process, at
    ``--n 20000`` on the ``ba`` graph (through ``--replicas 2
    --metrics-port 0``, and with ``--shards 1``) and the ``cliques`` graph;
+   the LM serving path (``lm``): ``qwen1.5-4b`` at full width (40 layers,
+   d_model 2560, vocab 151936, 3.95 B parameters) in bf16 with random
+   weights from a seeded generator on the card, ``greedy_generate`` at
+   batch 4, prompt 64, 32 new tokens with bf16-layout and int8 KV caches,
+   every step's logits held against the full-sequence ``forward``
+   (``LM_TOL``), prefill and decode times, tokens/s and peak memory; then
+   every architecture's reduced float32 config on the card against the
+   same weights on the CPU (``LM_F32_TOL``; greedy tokens equal, the
+   encoder-only model through ``make_prefill_step``); it must launch none
+   of the port's kernels;
 8. the kernels' JSON line, then the device line last.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero without
@@ -1209,6 +1224,227 @@ def scale_serve_phase(core, ops, g, idx_h, us, vs, res_h, rows, mesh):
     return counts
 
 
+def spg_serve_step_phase(ops, idx_h, us, vs, res_h, general, chunk):
+    """The SPG serve step on the hybrid index: ``make_spg_serve_step`` on
+    one ``chunk``-row general chunk (dist and symmetrized edge mask equal to
+    that chunk's ``query_batch`` answers), then ``serve_spg_batch`` on the
+    whole batch (equal to every ``query_batch`` answer).  The counters are
+    set to 0 just before the step and read just after the batch."""
+    from repro_torch.serving import make_spg_serve_step, serve_spg_batch
+
+    rows = general[:chunk]
+    u_t = torch.as_tensor(us[rows], dtype=torch.int32, device=idx_h.device)
+    v_t = torch.as_tensor(vs[rows], dtype=torch.int32, device=idx_h.device)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dist, mask = make_spg_serve_step(idx_h)(u_t, v_t)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    step_counts = dict(ops.LAUNCHES)
+    dist, mask = dist.cpu().numpy(), mask.cpu().numpy()
+    for k, i in enumerate(rows):
+        r = res_h[i]
+        if int(dist[k]) != r.dist or not np.array_equal(np.flatnonzero(mask[k]),
+                                                        r.edge_ids):
+            raise AssertionError(f"make_spg_serve_step disagrees with query_batch "
+                                 f"on ({r.u}, {r.v})")
+    t0 = time.perf_counter()
+    d_all, m_all = serve_spg_batch(idx_h, us, vs)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    for i, r in enumerate(res_h):
+        if int(d_all[i]) != r.dist or not np.array_equal(np.flatnonzero(m_all[i]),
+                                                         r.edge_ids):
+            raise AssertionError(f"serve_spg_batch disagrees with query_batch on "
+                                 f"({r.u}, {r.v})")
+    log(f"[spg_serve_step] make_spg_serve_step on {rows.size} general rows == "
+        f"query_batch in {t_step * 1e3:.1f} ms, launches {step_counts}; "
+        f"serve_spg_batch on {us.size} queries == query_batch in {t_batch:.2f} s "
+        f"({us.size / t_batch:.1f} queries/s, host (N, E) mask included); "
+        f"launches {counts}")
+    return step_counts, counts
+
+
+# The LM phase's tolerances, fixed before its first run on the card
+# (PERF.md, PR 17).  Full width, bf16: the greedy steps' logits against
+# the full-sequence forward at the same positions (logits reach ~5; one
+# bf16 step there is 0.03); int8 KV adds the quantisation error.
+LM_TOL = {"bf16": 0.25, "int8": 0.5}
+# Reduced configs, float32 (TF32 off): card against the port's own CPU
+# logits, abs and rel, per family.  The recurrent scans difference running
+# sums of log decays, so f32 rounding of their inputs is magnified (a
+# one-ulp perturbation of the weights moves the reference's own logits by
+# 4.4e-6 dense, 3.4e-5 rwkv6, 2.2e-4 zamba2); the same bounds as the CPU
+# tests' (tests/helpers/torch_lm.py).
+LM_F32_TOL = {"dense": 1e-4, "moe": 1e-4, "audio": 1e-4, "vlm": 1e-4,
+              "ssm": 5e-4, "hybrid": 5e-3}
+
+
+def _greedy_tokens_agree(got, want, want_logits, tol, what):
+    """Greedy tokens equal, except after a step where the reference side's
+    top two logits lie within ``2 * tol`` (a tie the tolerance allows):
+    there the sequences may part, and the rest is not compared."""
+    for t in range(want.shape[1]):
+        if torch.equal(got[:, t], want[:, t]):
+            continue
+        top2 = want_logits[:, t].topk(2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).min())
+        if gap >= 2 * tol:
+            raise AssertionError(f"{what}: greedy tokens differ at step {t} "
+                                 f"(top-2 gap {gap:.2e})")
+        return f"tokens equal to step {t}, then a tie within tolerance (gap {gap:.1e})"
+    return "tokens equal"
+
+
+def lm_phase(ops, seed: int = 0):
+    """The LM serving path: ``qwen1.5-4b`` at full width in bf16 on the card
+    with random weights from a seeded generator, ``greedy_generate`` at batch
+    4, prompt 64, 32 new tokens, with bf16-layout and int8 KV caches, each
+    step's logits held against the full-sequence ``forward`` (``LM_TOL``);
+    then every architecture's reduced float32 config, weights made on the
+    CPU and moved to the card, card logits against the port's own CPU
+    logits (``LM_F32_TOL``) and greedy tokens equal.  The counters are set
+    to 0 before the model is built and read at the end: the LM path runs
+    none of the port's kernels (its matmuls are cuBLAS, its attention torch
+    ops)."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import build_model, forward
+    from repro_torch.serving import (greedy_generate, make_decode_step,
+                                     make_prefill_step)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks need them off")
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-4b")
+    b, s, n_new = 4, 64, 32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QKV bias; "
+        f"{n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.2f} GB bf16, built "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)), dtype=torch.int32, device=dev)
+    greedy_generate(model, prompt, 2)                      # warm-up
+    prefill_step = make_prefill_step(model)
+    t_pre = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_step({"tokens": prompt})
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t0)
+    t_prefill = statistics.median(t_pre)
+    out = {}
+    for mode in ("bf16", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = greedy_generate(model, prompt, n_new, kv_quant=mode == "int8",
+                                       return_logits=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+        with torch.inference_mode():
+            full, _ = forward(model, {"tokens": seq})
+        want = full[:, s - 1:s - 1 + n_new]
+        gap = (logits - want).abs()
+        if not torch.isfinite(logits).all() or float(gap.max()) > LM_TOL[mode]:
+            raise AssertionError(f"[lm] {mode} KV: prefill+decode logits off the "
+                                 f"forward by {float(gap.max()):.3f} (tolerance "
+                                 f"{LM_TOL[mode]})")
+        same_top = float((want.argmax(-1) == toks).float().mean())
+        decode_ms = (wall - t_prefill) / (n_new - 1) * 1e3
+        out[mode] = toks
+        log(f"[lm] {mode} KV: greedy_generate {b} x ({s} + {n_new}) in "
+            f"{wall * 1e3:.1f} ms, {b * n_new / wall:.1f} tokens/s; decode "
+            f"{decode_ms:.2f} ms per token (greedy wall less the prefill's, over "
+            f"{n_new - 1} steps); logits vs forward: max |diff| "
+            f"{float(gap.max()):.4f} (tolerance {LM_TOL[mode]}), mean "
+            f"{float(gap.mean()):.5f}, max |logit| {float(want.abs().max()):.2f}; "
+            f"forward's argmax == greedy token on {same_top * 100:.1f}%")
+    agree = float((out["bf16"] == out["int8"]).float().mean())
+    # the bounds count the matmul weights (every parameter but the embedding
+    # table, of which a step gathers b rows) read once, and 2 flops per
+    # weight per token; a decode step also reads the bf16 KV cache once
+    n_mm = n_params - model.embed.numel()
+    kv_bytes = cfg.n_layers * 2 * b * (s + n_new) * cfg.n_kv_heads * cfg.hd * 2
+    t_dec, by_dec = bound_ms(2 * n_mm + kv_bytes, 2 * n_mm * b, 989e12)
+    t_pf, by_pf = bound_ms(2 * n_mm, 2 * n_mm * b * s, 989e12)
+    log(f"[lm] prefill {b} x {s}: {t_prefill * 1e3:.2f} ms (median of 5; bound "
+        f"{t_pf:.3f} ms by {by_pf}); a decode step's bound {t_dec:.3f} ms by "
+        f"{by_dec} (matmul weights + bf16 KV once, 3.35 TB/s; 989 TFLOP/s bf16); "
+        f"int8/bf16 greedy-token agreement {agree * 100:.1f}%; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, full, logits, want, gap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name in sorted(ARCHS):
+        cfg = ARCHS[name].reduced(dtype="float32")
+        tol = LM_F32_TOL[cfg.family]
+        cpu_model = build_model(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+        card = build_model(cfg, device="meta").to_empty(device=dev)
+        card.load_state_dict(cpu_model.state_dict())
+        rng = np.random.default_rng(seed)
+        if cfg.frontend == "audio_frames":
+            batch = {"features": rng.normal(size=(2, s, cfg.frontend_dim)).astype(np.float32)}
+        else:
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)}
+            if cfg.frontend == "vision_patches":
+                batch["patches"] = rng.normal(size=(2, 8, cfg.frontend_dim)).astype(np.float32)
+        # prefill (the forward for the encoder-only model) on both sides
+        want, c_cache = make_prefill_step(cpu_model)(
+            {k: torch.as_tensor(v) for k, v in batch.items()})
+        got, g_cache = make_prefill_step(card)(
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        worst = float((got.cpu() - want).abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+        what = "prefill" if not cfg.encoder_only else "forward (make_prefill_step)"
+        if cfg.frontend == "vision_patches":
+            # greedy_generate takes tokens only; one decode step on the caches
+            cache_len = 8 + s
+            tok = torch.full((2, 1), 5)
+            c = cpu_model.init_decode_cache(2, cache_len + 1)
+            g = card.init_decode_cache(2, cache_len + 1)
+            with torch.inference_mode():
+                for (kb, vb), (kp, vp) in zip(c["layers"], c_cache["layers"]):
+                    kb[:, :cache_len], vb[:, :cache_len] = kp, vp
+                for (kb, vb), (kp, vp) in zip(g["layers"], g_cache["layers"]):
+                    kb[:, :cache_len], vb[:, :cache_len] = kp, vp
+            w2, _ = make_decode_step(cpu_model)(c, cache_len, tok)
+            g2, _ = make_decode_step(card)(g, cache_len, tok.to(dev))
+            torch.testing.assert_close(g2.cpu(), w2, rtol=tol, atol=tol)
+            worst = max(worst, float((g2.cpu() - w2).abs().max()))
+            what += " and one decode_step"
+        elif not cfg.encoder_only:
+            for kvq in (False, True):
+                tw, lw = greedy_generate(cpu_model, batch["tokens"], 8, kv_quant=kvq,
+                                         return_logits=True)
+                tg, lg = greedy_generate(card, batch["tokens"], 8, kv_quant=kvq,
+                                         return_logits=True)
+                note = _greedy_tokens_agree(tg.cpu(), tw, lw, tol,
+                                            f"[lm] {name} kv_quant={kvq}")
+                worst = max(worst, float((lg.cpu() - lw)[:, :1].abs().max()))
+                what += f", greedy {'int8' if kvq else 'bf16-layout'} KV ({note})"
+        log(f"[lm] {name} reduced, float32: card == CPU within {tol:g} on the "
+            f"{what}; max |diff| {worst:.2e}")
+        del cpu_model, card
+    counts = dict(ops.LAUNCHES)
+    return counts
+
+
 def graph_and_queries(core, n_vertices, n_random, n_landmarks=20):
     """The 1.1 M-vertex graph and the query batch: ``n_random`` random
     pairs, 8 landmark pairs, 8 one-sided pairs and 2 ``u == v``."""
@@ -1261,6 +1497,10 @@ def main() -> int:
                     help="also time the general lane's stages on one chunk and "
                          "trace it with torch.profiler")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    def clock(label: str) -> None:
+        log(f"[clock] {label} at {time.perf_counter() - t_start:.1f} s")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1287,9 +1527,11 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
 
+    clock("kernel checks start")
     # phase 3: kernels against their plain versions
     rows = check_kernels(dev, ref, INF)
 
+    clock("main path starts")
     # phase 4: the main path
     g, lms, rng, us, vs, lanes = graph_and_queries(core, args.n_vertices,
                                                    args.n_random)
@@ -1336,6 +1578,12 @@ def main() -> int:
             if name not in names and count != 0:
                 raise AssertionError(f"kernel {name} was launched {count} times "
                                      f"on the {path} path")
+    clock("spg_serve_step starts")
+    step_counts, launches["spg_serve_step"] = spg_serve_step_phase(
+        ops, idx_h, us, vs, res_h, lanes["general"], chunk)
+    if (step_counts["sketch_batch"] != 1 or launches["spg_serve_step"]["sketch_batch"]
+            != 1 + launches["hybrid"]["sketch_batch"]):
+        raise AssertionError("spg_serve_step: sketch_batch not once per general chunk")
     if args.breakdown:
         first = lanes["general"][:chunk]
         for idx in (idx_h, idx_s, idx_c):
@@ -1348,11 +1596,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the live serving tier and the dynamic updates, on the hybrid index
+    clock("serving tier starts")
     launches["stream"] = stream_phase(ops, idx_h, us, vs, res_h, lanes["general"])
     launches["replicas"] = replicas_phase(ops, idx_h, us, vs, res_h)
     launches["update"] = update_phase(core, ops, idx_h, us, vs, res_h, lms, chunk)
 
     # the multi-device paths
+    clock("multi-device paths start")
     mesh = shard_mesh(core)
     log(f"mesh: {mesh}")
     launches["sharded"] = sharded_phase(core, ops, g, idx_h, us, vs, res_h, lanes,
@@ -1362,7 +1612,8 @@ def main() -> int:
                                                 lanes["general"][:chunk], mesh)
     gc.collect()
     torch.cuda.empty_cache()
-    for path, names in (("stream", ("sketch_batch", "hybrid_relay")),
+    for path, names in (("spg_serve_step", ("sketch_batch", "hybrid_relay")),
+                        ("stream", ("sketch_batch", "hybrid_relay")),
                         ("replicas", ("sketch_batch", "hybrid_relay")),
                         ("update", ("hybrid_relay",)),
                         ("sharded", ("sketch_batch",)),
@@ -1373,6 +1624,7 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} was launched {count} times "
                                      f"on the {path} path")
 
+    clock("oracle and baselines start")
     sample = np.concatenate([rng.choice(lanes["general"], size=5, replace=False),
                              lanes["landmark_pair"][:1], lanes["one_sided"][:1],
                              lanes["trivial"][:1]])
@@ -1391,6 +1643,7 @@ def main() -> int:
               [(int(us[i]), int(vs[i]), d, eids) for i, (d, eids)
                in zip(sample[:2], want[:2])])
 
+    clock("CLI starts")
     # phase 7: the serving CLI, in process, on the card
     from repro_torch.launch import serve
     for graph, backend, extra in (("ba", "hybrid", ["--replicas", "2",
@@ -1403,6 +1656,13 @@ def main() -> int:
                    + ([] if backend == "sharded" else ["--backend", backend]))
         log(f"[cli] {graph} on {backend}: {time.perf_counter() - t0:.1f} s")
 
+    # the LM serving path (no kernel of the port's runs there)
+    clock("lm starts")
+    launches["lm"] = lm_phase(ops)
+    if any(launches["lm"].values()):
+        raise AssertionError(f"the LM path launched {launches['lm']}")
+
+    clock("results")
     # phase 8: results
     kernels = []
     for name, main_path in (("minplus", "sketch_oracle"),

@@ -1,8 +1,10 @@
 """State carried across from the JAX package: build the port's ``Graph`` and
 ``QbSIndex`` from plain numpy arrays of the reference's ``Graph`` and
 ``LabellingScheme`` fields, so the port serves queries on exactly the
-labelling the reference built.  Nothing here imports the reference; the
-caller hands over numpy arrays (``np.asarray`` of each field)."""
+labelling the reference built, and the port's LM from the reference's
+parameter tree, so both compute with the same weights.  Nothing here
+imports the reference; the caller hands over numpy arrays (``np.asarray``
+of each field or leaf)."""
 from __future__ import annotations
 
 from typing import Mapping, Sequence
@@ -13,6 +15,7 @@ import torch
 from .core.graph import Graph, resolve_device
 from .core.labelling import LabellingScheme
 from .core.qbs import QbSIndex
+from .models.registry import Model, build_model
 
 GRAPH_FIELDS = Graph._fields                      # indptr, src, dst
 SCHEME_FIELDS = LabellingScheme._fields           # landmarks, lid, is_landmark,
@@ -74,3 +77,58 @@ def index_from_numpy(graph_arrays, scheme_arrays, *, device=None,
     return QbSIndex(graph, scheme, backend=backend, engine_opts=engine_opts,
                     chunk=chunk, max_levels=max_levels, max_chain=max_chain,
                     epoch=epoch, lm_dist=lm_dist)
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of the same dtype.  bfloat16 (numpy's
+    ``ml_dtypes`` extension type, which ``torch.from_numpy`` refuses)
+    crosses bit for bit through its 16-bit view."""
+    a = np.array(a)                                # a copy: JAX views are read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _load(module: torch.nn.Module, tree: Mapping, prefix: str, done: set) -> None:
+    for name, val in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(val, Mapping):
+            _load(getattr(module, name), val, path + ".", done)
+            continue
+        param = getattr(module, name)
+        src = _leaf_tensor(val)
+        if src.shape != param.shape or src.dtype != param.dtype:
+            raise ValueError(f"{path}: the tree holds {tuple(src.shape)} "
+                             f"{src.dtype}, the model {tuple(param.shape)} {param.dtype}")
+        with torch.no_grad():
+            param.copy_(src)
+        done.add(path)
+
+
+def _index(tree: Mapping, i) -> dict:
+    return {k: _index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def lm_from_numpy(cfg, params: Mapping, *, device=None) -> Model:
+    """The port's LM for ``cfg`` on ``device`` (the CUDA card unless named),
+    holding exactly the weights of the reference's parameter tree
+    (``models.transformer.init_params``'s dict, leaves as numpy arrays).
+    The reference stacks the blocks' leaves along a leading layer axis,
+    ``(n_groups, period)`` for the hybrid family; each slice goes to its
+    block module.  Every parameter must be filled, with the same shape and
+    dtype, or it raises."""
+    dev = resolve_device(device)
+    model = build_model(cfg, device="meta").to_empty(device=dev)
+    done: set = set()
+    _load(model, {k: v for k, v in params.items() if k != "blocks"}, "", done)
+    for i, blk in enumerate(model.blocks):
+        if cfg.family == "hybrid":
+            for j, layer in enumerate(blk):
+                _load(layer, _index(params["blocks"], (i, j)), f"blocks.{i}.{j}.", done)
+        else:
+            _load(blk, _index(params["blocks"], i), f"blocks.{i}.", done)
+    missing = sorted(set(dict(model.named_parameters())) - done)
+    if missing:
+        raise ValueError(f"the parameter tree leaves {missing} unfilled")
+    return model

@@ -24,6 +24,7 @@ from .graph import (
     resolve_device,
     ring_of_cliques,
     select_landmarks,
+    to_networkx,
 )
 from .labelling import (
     LabellingScheme,
@@ -55,7 +56,7 @@ __all__ = [
     "edge_set", "from_edges",
     "gnp_random_graph", "grid_graph", "largest_connected_component",
     "random_regular_graph", "resolve_device", "ring_of_cliques",
-    "select_landmarks",
+    "select_landmarks", "to_networkx",
     "FrontierEngine", "HubSplit", "bfs_depths", "bfs_depths_batch",
     "hub_split", "make_relay", "segment_or",
     "LabellingScheme", "affected_landmarks", "build_labelling",

@@ -194,6 +194,21 @@ def apply_edge_updates(graph: Graph, inserts: np.ndarray | None = None,
                       device=graph.device)
 
 
+def to_networkx(graph: Graph):
+    """The graph as an undirected ``networkx.Graph`` over all
+    ``n_vertices`` vertices (pad vertices included, isolated), without the
+    padding self-loops.  ``networkx`` is imported on call."""
+    import networkx as nx
+
+    g = nx.Graph()
+    g.add_nodes_from(range(graph.n_vertices))
+    s = graph.src.cpu().numpy()
+    d = graph.dst.cpu().numpy()
+    real = s != d
+    g.add_edges_from(zip(s[real].tolist(), d[real].tolist()))
+    return g
+
+
 # ---------------------------------------------------------------------------
 # Generators (host-side numpy, the reference's draws from the same seed).
 # ---------------------------------------------------------------------------
