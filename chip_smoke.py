@@ -4,8 +4,8 @@ each against its plain PyTorch version, drive the main path
 the SPG serve step, the dense expansion's path, the live serving tier
 (stream, replicas, metrics), the epoch-versioned edge updates, the
 multi-device paths (four shards on the one card), the baselines, the
-serving CLI and the LM serving path (``qwen1.5-4b`` at full width), and
-check the answers.
+serving CLI, the LM serving path and the LM training path (``qwen1.5-4b``
+at full width), and check the answers.
 
     python3 chip_smoke.py                      # 1.1 M-vertex BA graph, R = 20
     python3 chip_smoke.py --n-vertices 100000  # a quicker rehearsal
@@ -93,6 +93,18 @@ Phases (each raises on failure; nothing is caught):
    same weights on the CPU (``LM_F32_TOL``; greedy tokens equal, the
    encoder-only model through ``make_prefill_step``); it must launch none
    of the port's kernels;
+   the LM training path (``train``, ``train_phase``): the ``lm`` model
+   freed, ``qwen1.5-4b`` at full width and depth in bf16, 8 AdamW steps of
+   batch 2 x 512 fed by ``SyntheticLM`` through ``Prefetcher`` (every loss
+   and grad norm finite, the loss falling; ms per step, tokens/s,
+   model-FLOP share, peak memory), then 2 steps with
+   ``remat_policy="layer"``; every reduced float32 config, 2 steps with
+   ``microbatches=2`` (``remat`` on alternate ones) on the card and on the
+   CPU from the same state, held to the CPU tests' tolerances
+   (``TRAIN_GRAD_TOL``, ``adam_allowance``); a checkpoint at step 3 of 6,
+   restored and replayed on the card, bit-identical under
+   ``torch.use_deterministic_algorithms``; it must launch none of the
+   port's kernels;
 8. the kernels' JSON line, then the device line last.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero without
@@ -103,6 +115,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -112,6 +125,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# cuBLAS reads this when it creates its first handle, at the first matmul on
+# the card (importing torch creates none): the train phase's resume check
+# runs under torch.use_deterministic_algorithms, which needs it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core peak (float32 rate)
@@ -664,7 +682,7 @@ def breakdown(core, idx, us, vs):
     profile_step(idx.backend, lambda: idx.serve_step(us_t, vs_t))
 
 
-def profile_step(label, step, top: int = 8):
+def profile_step(label, step, top: int = 8, what: str = "serve_step"):
     """One call of ``step`` under torch.profiler: wall time, the device's
     busy share of it and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -675,7 +693,7 @@ def profile_step(label, step, top: int = 8):
         wall = time.perf_counter() - t0
     events = device_events(prof)
     dev_total = sum(_device_us(e) for e in events)
-    log(f"[{label}] profiled serve_step: wall {wall * 1e3:.1f} ms, device "
+    log(f"[{label}] profiled {what}: wall {wall * 1e3:.1f} ms, device "
         f"busy {dev_total / 1e3:.1f} ms ({dev_total / 1e4 / wall:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -_device_us(e))[:top]:
         log(f"    {_device_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
@@ -1445,6 +1463,312 @@ def lm_phase(ops, seed: int = 0):
     return counts
 
 
+# The train phase's gradient tolerances, card against the port's own CPU
+# path, per family: the CPU tests' (tests/helpers/torch_lm.py, GRAD_TOL),
+# relative to each leaf's largest |gradient|; a one-ulp perturbation of
+# the weights moves the reference's own gradients by 1.2e-6 to 2.4e-6 of
+# that on the attention families, 1.4e-5 on rwkv6 and 1.8e-4 on zamba2.
+TRAIN_GRAD_TOL = {"dense": 5e-5, "moe": 5e-5, "audio": 5e-5, "vlm": 5e-5,
+                  "ssm": 3e-4, "hybrid": 4e-3}
+# float32 parameters after one step, away from the elements whose update
+# Adam's normalisation amplifies (``adam_allowance``)
+TRAIN_P_ATOL = 1e-6
+BF16_TC_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+
+
+def adam_allowance(g, m_prev, v_prev, step: int, lr: float, dg,
+                   b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8):
+    """How far AdamW's update ``lr * mhat / (sqrt(vhat) + eps)`` can move
+    (elementwise, float64) when the gradient ``g`` moves by up to ``dg``
+    from moments ``m_prev``, ``v_prev`` at ``step``: the largest change over
+    nine points spanning ``[g - dg, g + dg]``.  Where ``|g| <= dg`` the
+    first step's +-lr move may flip (``2 * lr``); where ``|g|`` is far above
+    ``dg`` and ``eps``, about nothing.  The CPU tests' rule
+    (tests/helpers/torch_lm.py)."""
+    g, m_prev, v_prev, dg = (t.double() for t in (g, m_prev, v_prev, dg))
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+
+    def upd(gp):
+        m = b1 * m_prev + (1 - b1) * gp
+        v = b2 * v_prev + (1 - b2) * gp * gp
+        return (m / bc1) / (torch.sqrt(v / bc2) + eps)
+
+    u0 = upd(g)
+    return lr * torch.stack([(upd(g + t * dg) - u0).abs()
+                             for t in np.linspace(-1.0, 1.0, 9)]).amax(0)
+
+
+def _train_batch(cfg, step: int, seed: int = 0):
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    return SyntheticLM(SyntheticLMConfig(
+        cfg.vocab_size, seq_len=64, global_batch=4, seed=seed, frontend=cfg.frontend,
+        frontend_dim=cfg.frontend_dim, n_patches=8)).batch_at(step)
+
+
+def _card_vs_cpu_step(name, cfg, cpu, card, cpu_state, card_state, cpu_step,
+                      card_step, batch, step, dev):
+    """One train step on each side from the same parameters and state;
+    then the card's loss, grad norm, moments and parameters against the
+    CPU's, and the CPU's state copied onto the card for the next step."""
+    from repro_torch.launch.train import to_device
+
+    fam = cfg.family
+    mu_prev = {k: v.clone() for k, v in cpu_state["mu"].items()}
+    nu_prev = {k: v.clone() for k, v in cpu_state["nu"].items()}
+    _, _, want = cpu_step(cpu, cpu_state, to_device(batch, torch.device("cpu")))
+    _, _, got = card_step(card, card_state, to_device(batch, dev))
+    tol = TRAIN_GRAD_TOL[fam]
+    worst = {}
+    for k in ("loss", "nll", "aux"):
+        d = abs(float(got[k]) - float(want[k]))
+        if not d <= LM_F32_TOL[fam] * max(1.0, abs(float(want[k]))):
+            raise AssertionError(f"[train] {name} step {step}: {k} {float(got[k])} "
+                                 f"on the card, {float(want[k])} on the CPU")
+        worst[k] = d
+    gn_w = float(want["grad_norm"])
+    if not abs(float(got["grad_norm"]) - gn_w) <= tol * gn_w:
+        raise AssertionError(f"[train] {name} step {step}: grad_norm "
+                             f"{float(got['grad_norm'])} vs {gn_w}")
+    lr = float(want["lr"])
+    params = dict(card.named_parameters())
+    for n, p_cpu in cpu.named_parameters():
+        mu, nu = cpu_state["mu"][n], cpu_state["nu"][n]
+        g = (mu - 0.9 * mu_prev[n]) / (1 - 0.9)
+        dg = torch.full_like(g, tol * float(g.abs().max()))
+        for key, want_t, bound in (
+                ("mu", mu, (1 - 0.9) * dg),
+                ("nu", nu, (1 - 0.95) * 2 * dg * (g.abs() + dg))):
+            d = (card_state[key][n].cpu() - want_t).abs()
+            if not bool((d <= bound + 1e-30).all()):
+                raise AssertionError(f"[train] {name} step {step}: {key}[{n}] off "
+                                     f"by {float(d.max()):.3e}")
+        allow = adam_allowance(g, mu_prev[n], nu_prev[n], step, lr, dg) + TRAIN_P_ATOL
+        d = (params[n].detach().cpu().double() - p_cpu.detach().double()).abs()
+        if not bool((d <= allow).all()):
+            i = int(torch.argmax(d - allow))
+            raise AssertionError(f"[train] {name} step {step}: {n} off by "
+                                 f"{float(d.flatten()[i]):.3e} (bound "
+                                 f"{float(allow.flatten()[i]):.3e})")
+        worst["params"] = max(worst.get("params", 0.0), float(d.max()))
+    with torch.no_grad():
+        card.load_state_dict(cpu.state_dict())
+        for key in ("mu", "nu"):
+            for n, t in cpu_state[key].items():
+                card_state[key][n].copy_(t)
+    return worst
+
+
+def train_phase(ops, seed: int = 0):
+    """The LM training path on the card: ``qwen1.5-4b`` at full width and
+    depth in bf16 (random weights from a seeded generator), ``SyntheticLM``
+    through ``Prefetcher``, ``adamw(warmup_cosine(3e-4, 2, 8))``, 8 steps of
+    batch 2 x 512 (loss falling, every loss and grad norm finite; ms per
+    step, tokens/s, model-FLOP share and peak memory), then 2 steps with
+    ``remat_policy="layer"``; every architecture's reduced float32 config,
+    2 steps on the card and on the CPU with ``microbatches=2`` (``remat``
+    on alternate ones), each step from the same state, held to the CPU
+    tests' tolerances; and a checkpoint resume on the card, bit-identical
+    under ``torch.use_deterministic_algorithms``.  The counters are set to 0
+    before the model is built and read at the end: no kernel of the port
+    runs on this path."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data import Prefetcher, SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model, loss_fn
+    from repro_torch.training import adamw, make_train_step, warmup_cosine
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks need them off")
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    # 1. full width: qwen1.5-4b, bf16, batch 2 x 512
+    cfg = get_config("qwen1.5-4b")
+    b, s, n_steps = 2, 512, 8
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(seed))
+    opt = adamw(warmup_cosine(3e-4, 2, 8))
+    opt_state = opt.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QKV bias; "
+        f"{n_params / 1e9:.3f} B parameters in bf16, AdamW moments in float32; "
+        f"built in {time.perf_counter() - t0:.1f} s; batch {b} x {s}")
+    source = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, seq_len=s, global_batch=b,
+                                           seed=0))
+    step_fn = make_train_step(model, opt)
+    times, metrics = [], []
+    pf = Prefetcher(source, start_step=0, depth=2)
+    try:
+        for step in range(n_steps):
+            got_step, batch = pf.next()
+            if got_step != step:
+                raise AssertionError(f"the prefetcher gave step {got_step} for {step}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt_state, met = step_fn(model, opt_state, to_device(batch, dev))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append(met)
+    finally:
+        pf.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"[train] a loss or grad norm is not finite: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    # FLOPs: 6 per matmul weight per token (forward and backward; every
+    # 2-D parameter but the embedding table, which is a gather) plus the
+    # attention products, QK^T and AV over the full (S, S) square, which
+    # the naive attention computes
+    n_mm = sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() == 2 and n != "embed")
+    attn = 3 * 4 * b * s * s * cfg.n_heads * cfg.hd * cfg.n_layers
+    flops = 6 * n_mm * b * s + attn
+    # AdamW: read p, g (bf16), mu, nu (f32); write p, mu, nu
+    opt_bytes = n_params * (2 + 2 + 4 + 4 + 2 + 4 + 4)
+    step_s = statistics.median(times[2:])
+    t_flops = flops / BF16_TC_FLOPS * 1e3
+    t_bytes = opt_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in gnorms)}; lr {float(metrics[-1]['lr']):.2e} "
+        f"at step {n_steps}")
+    log(f"[train] step ms {', '.join(f'{t * 1e3:.1f}' for t in times)}; median of "
+        f"steps 3-{n_steps} {step_s * 1e3:.2f} ms, {b * s / step_s:.0f} tokens/s; "
+        f"{flops:.4g} FLOPs per step ({n_mm / 1e9:.3f} B matmul weights), "
+        f"model-FLOP share {flops / (step_s * BF16_TC_FLOPS) * 100:.1f}% of 989 "
+        f"TFLOP/s (bound {t_flops:.2f} ms); the AdamW update's bytes bound "
+        f"{t_bytes:.2f} ms ({opt_bytes / 1e9:.1f} GB at 3.35 TB/s); peak device "
+        f"memory {peak:.2f} GiB")
+    params = dict(model.named_parameters())
+
+    def split_step(step):
+        """One step in its two halves, each timed and its peak read: the
+        loss and gradients, then the AdamW update (the step's own work)."""
+        batch = to_device(source.batch_at(step), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        peak_grad = torch.cuda.max_memory_allocated() / 2**30
+        opt.update(dict(zip(params, grads)), opt_state, params)
+        torch.cuda.synchronize()
+        return ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, peak_grad,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    def log_split(label, split):
+        log(f"[train] {label}: loss and gradients {split[0]:.1f} ms (peak "
+            f"{split[2]:.2f} GiB), the AdamW update {split[1]:.1f} ms (bytes bound "
+            f"{t_bytes:.2f} ms; peak {split[3]:.2f} GiB)")
+
+    log_split("one step split", split_step(n_steps))
+    batch = to_device(source.batch_at(n_steps + 1), dev)
+    profile_step("train", lambda: step_fn(model, opt_state, batch), top=10,
+                 what="train step")
+
+    model.cfg = dataclasses.replace(cfg, remat_policy="layer")
+    step_fn = make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    remat_times = []
+    for step in range(n_steps + 2, n_steps + 5):
+        batch = to_device(source.batch_at(step), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt_state, met = step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        remat_times.append(time.perf_counter() - t0)
+        if not np.isfinite(float(met["loss"])):
+            raise AssertionError("[train] a remat step's loss is not finite")
+    log(f"[train] remat_policy=layer: step ms {', '.join(f'{t * 1e3:.1f}' for t in remat_times)} "
+        f"(without: {step_s * 1e3:.2f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (without: {peak:.2f}); "
+        f"allocator retries "
+        f"{torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries}")
+    log_split("remat_policy=layer, one step split", split_step(n_steps + 5))
+    del model, opt_state, step_fn, metrics, met, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. every reduced float32 config, card against CPU, 2 steps each
+    for i, name in enumerate(sorted(ARCHS)):
+        cfg = ARCHS[name].reduced(dtype="float32")
+        remat = i % 2 == 1
+        cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+        card = build_model(cfg, device="meta").to_empty(device=dev)
+        card.load_state_dict(cpu.state_dict())
+        opt = adamw(warmup_cosine(1e-3, 1, 10))
+        cpu_state = opt.init(dict(cpu.named_parameters()))
+        card_state = opt.init(dict(card.named_parameters()))
+        cpu_step = make_train_step(cpu, opt, microbatches=2, remat=remat)
+        card_step = make_train_step(card, opt, microbatches=2, remat=remat)
+        worst = {}
+        for step in (1, 2):
+            w = _card_vs_cpu_step(name, cfg, cpu, card, cpu_state, card_state, cpu_step,
+                                  card_step, _train_batch(cfg, step - 1, seed), step, dev)
+            worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+        log(f"[train] {name} reduced, float32, microbatches=2, remat={remat}: card "
+            f"== CPU over 2 steps; max |diff| loss {worst['loss']:.2e}, params "
+            f"{worst['params']:.2e} (gradient tolerance {TRAIN_GRAD_TOL[cfg.family]:g})")
+        del cpu, card
+
+    # 3. resume on the card, bit-identical under deterministic algorithms
+    cfg = get_config("qwen1.5-4b").reduced()
+    opt = adamw(warmup_cosine(2e-2, 3, 100), weight_decay=0.01)
+    source = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, seq_len=32, global_batch=8))
+
+    def fresh():
+        m = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        return m, opt.init(dict(m.named_parameters()))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            model, opt_state = fresh()
+            step_fn = make_train_step(model, opt)
+            for step in range(6):
+                model, opt_state, _ = step_fn(model, opt_state,
+                                              to_device(source.batch_at(step), dev))
+                if step == 2:
+                    ckpt.save(root, 3, {"params": model.state_dict(), "opt": opt_state},
+                              extra={"data_step": 3})
+            want = {k: v.detach().clone() for k, v in model.named_parameters()}
+            model, opt_state = fresh()
+            got_step, tree, extra = ckpt.restore(
+                root, {"params": model.state_dict(), "opt": opt_state})
+            model.load_state_dict(tree["params"])
+            opt_state = tree["opt"]
+            step_fn = make_train_step(model, opt)
+            for step in range(extra["data_step"], 6):
+                model, opt_state, _ = step_fn(model, opt_state,
+                                              to_device(source.batch_at(step), dev))
+            same = [torch.equal(p.detach(), want[k]) for k, p in model.named_parameters()]
+            if got_step != 3 or not all(same):
+                raise AssertionError(f"[train] resume from step {got_step}: "
+                                     f"{same.count(False)} of {len(same)} parameters differ")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train] resume: 6 steps with a checkpoint at 3, restored and replayed "
+        f"4-6 on the card under deterministic algorithms: all {len(same)} "
+        f"parameters bit-identical")
+    return dict(ops.LAUNCHES)
+
+
 def graph_and_queries(core, n_vertices, n_random, n_landmarks=20):
     """The 1.1 M-vertex graph and the query batch: ``n_random`` random
     pairs, 8 landmark pairs, 8 one-sided pairs and 2 ``u == v``."""
@@ -1661,6 +1985,12 @@ def main() -> int:
     launches["lm"] = lm_phase(ops)
     if any(launches["lm"].values()):
         raise AssertionError(f"the LM path launched {launches['lm']}")
+
+    # the LM training path (no kernel of the port's runs there either)
+    clock("train starts")
+    launches["train"] = train_phase(ops)
+    if any(launches["train"].values()):
+        raise AssertionError(f"the training path launched {launches['train']}")
 
     clock("results")
     # phase 8: results

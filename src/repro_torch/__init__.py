@@ -5,8 +5,10 @@ names, bit-identical answers, and the reference's Pallas TPU kernels on the
 serving path rewritten as hand-written CUDA kernels (``kernels``).  Every
 entry point puts its tensors on the CUDA card unless the caller passes
 ``device="cpu"``, which runs each kernel's plain PyTorch version.  The LM
-substrate's serving half (``models``, ``configs``, the prefill/decode steps
-and ``greedy_generate`` in ``serving``) runs on torch ops and cuBLAS.
+substrate (``models``, ``configs``; serving: the prefill/decode steps and
+``greedy_generate`` in ``serving``; training: ``training``, ``data``,
+``checkpoint``, ``distributed`` and ``launch.train``) runs on torch ops and
+cuBLAS.
 
     from repro_torch.core import QbSIndex, barabasi_albert_graph
     g = barabasi_albert_graph(100_000, 3, seed=0)
@@ -18,7 +20,14 @@ and ``greedy_generate`` in ``serving``) runs on torch ops and cuBLAS.
     from repro_torch.serving import greedy_generate
     model = build_model(get_config("qwen1.5-4b"))     # random weights, seed 0
     tokens = greedy_generate(model, prompt_tokens, n_new=32)
-"""
-from . import configs, core, kernels, models, serving
 
-__all__ = ["configs", "core", "kernels", "models", "serving"]
+    from repro_torch.training import adamw, make_train_step, warmup_cosine
+    opt = adamw(warmup_cosine(3e-4, 100, 1000))
+    opt_state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt)
+    model, opt_state, metrics = step(model, opt_state, {"tokens": tokens})
+"""
+from . import checkpoint, configs, core, data, distributed, kernels, models, serving, training
+
+__all__ = ["checkpoint", "configs", "core", "data", "distributed", "kernels", "models",
+           "serving", "training"]

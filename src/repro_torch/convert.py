@@ -2,9 +2,10 @@
 ``QbSIndex`` from plain numpy arrays of the reference's ``Graph`` and
 ``LabellingScheme`` fields, so the port serves queries on exactly the
 labelling the reference built, and the port's LM from the reference's
-parameter tree, so both compute with the same weights.  Nothing here
-imports the reference; the caller hands over numpy arrays (``np.asarray``
-of each field or leaf)."""
+parameter tree, so both compute with the same weights (and any tree
+shaped like it, gradients or AdamW state, by the port's parameter names).
+Nothing here imports the reference; the caller hands over numpy arrays
+(``np.asarray`` of each field or leaf)."""
 from __future__ import annotations
 
 from typing import Mapping, Sequence
@@ -89,20 +90,13 @@ def _leaf_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _load(module: torch.nn.Module, tree: Mapping, prefix: str, done: set) -> None:
+def _flat(tree: Mapping, prefix: str, out: dict) -> dict:
     for name, val in tree.items():
-        path = f"{prefix}{name}"
         if isinstance(val, Mapping):
-            _load(getattr(module, name), val, path + ".", done)
-            continue
-        param = getattr(module, name)
-        src = _leaf_tensor(val)
-        if src.shape != param.shape or src.dtype != param.dtype:
-            raise ValueError(f"{path}: the tree holds {tuple(src.shape)} "
-                             f"{src.dtype}, the model {tuple(param.shape)} {param.dtype}")
-        with torch.no_grad():
-            param.copy_(src)
-        done.add(path)
+            _flat(val, f"{prefix}{name}.", out)
+        else:
+            out[f"{prefix}{name}"] = val
+    return out
 
 
 def _index(tree: Mapping, i) -> dict:
@@ -110,25 +104,66 @@ def _index(tree: Mapping, i) -> dict:
             for k, v in tree.items()}
 
 
+def lm_tree_from_numpy(cfg, tree: Mapping, *, device=None) -> dict[str, torch.Tensor]:
+    """Any tree shaped like the reference's parameter tree
+    (``models.transformer.init_params``'s dict: the parameters, their
+    gradients, AdamW's ``mu`` or ``nu``; leaves as numpy arrays) as
+    ``{name: tensor}`` under the port's ``named_parameters()`` names, on
+    ``device`` (the CUDA card unless named), each leaf's dtype kept.  The
+    reference stacks the blocks' leaves along a leading layer axis
+    (``(n_groups, period)`` for the hybrid family); each slice becomes its
+    block's entry.  Every parameter must be present with its shape, or it
+    raises."""
+    dev = resolve_device(device)
+    out = _flat({k: v for k, v in tree.items() if k != "blocks"}, "", {})
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.hybrid_period
+        for i in range(n_groups):
+            for j in range(cfg.hybrid_period):
+                _flat(_index(tree["blocks"], (i, j)), f"blocks.{i}.{j}.", out)
+    else:
+        for i in range(cfg.n_layers):
+            _flat(_index(tree["blocks"], i), f"blocks.{i}.", out)
+    want = {n: tuple(p.shape) for n, p in
+            build_model(cfg, device="meta").named_parameters()}
+    if set(out) != set(want):
+        raise ValueError(f"the tree's leaves {sorted(set(out) - set(want))} have no "
+                         f"parameter; parameters {sorted(set(want) - set(out))} "
+                         f"have no leaf")
+    got = {}
+    for name, val in out.items():
+        t = _leaf_tensor(val)
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name}: the tree holds {tuple(t.shape)}, the model "
+                             f"{want[name]}")
+        got[name] = t.to(dev)
+    return got
+
+
+def opt_state_from_numpy(cfg, state: Mapping, *, device=None) -> dict:
+    """The reference's AdamW state (``{"mu", "nu", "step"}``, numpy leaves)
+    as the port's optimizer state: the moments by parameter name, the step
+    an int32 scalar."""
+    dev = resolve_device(device)
+    return {"mu": lm_tree_from_numpy(cfg, state["mu"], device=dev),
+            "nu": lm_tree_from_numpy(cfg, state["nu"], device=dev),
+            "step": torch.tensor(np.asarray(state["step"]), dtype=torch.int32,
+                                 device=dev)}
+
+
 def lm_from_numpy(cfg, params: Mapping, *, device=None) -> Model:
     """The port's LM for ``cfg`` on ``device`` (the CUDA card unless named),
     holding exactly the weights of the reference's parameter tree
-    (``models.transformer.init_params``'s dict, leaves as numpy arrays).
-    The reference stacks the blocks' leaves along a leading layer axis,
-    ``(n_groups, period)`` for the hybrid family; each slice goes to its
-    block module.  Every parameter must be filled, with the same shape and
-    dtype, or it raises."""
+    (``models.transformer.init_params``'s dict, leaves as numpy arrays),
+    through ``lm_tree_from_numpy``.  Every parameter must be filled, with
+    the same shape and dtype, or it raises."""
     dev = resolve_device(device)
+    tree = lm_tree_from_numpy(cfg, params, device="cpu")
     model = build_model(cfg, device="meta").to_empty(device=dev)
-    done: set = set()
-    _load(model, {k: v for k, v in params.items() if k != "blocks"}, "", done)
-    for i, blk in enumerate(model.blocks):
-        if cfg.family == "hybrid":
-            for j, layer in enumerate(blk):
-                _load(layer, _index(params["blocks"], (i, j)), f"blocks.{i}.{j}.", done)
-        else:
-            _load(blk, _index(params["blocks"], i), f"blocks.{i}.", done)
-    missing = sorted(set(dict(model.named_parameters())) - done)
-    if missing:
-        raise ValueError(f"the parameter tree leaves {missing} unfilled")
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if tree[name].dtype != param.dtype:
+                raise ValueError(f"{name}: the tree holds {tree[name].dtype}, the "
+                                 f"model {param.dtype}")
+            param.copy_(tree[name])
     return model

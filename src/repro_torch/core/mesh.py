@@ -2,12 +2,12 @@
 
 Counterpart of ``jax.sharding.Mesh`` plus the ``lax`` collectives that the
 reference's ``shard_map`` programs use (``all_gather``, ``all_to_all``,
-``psum``, ``pmin``, ``pmax``).  The reference is single-process SPMD; so is
-the port: one Python process holds a ``Mesh``, an ordered list of S
-``torch.device``s, keeps shard ``s``'s tensors on ``mesh.devices[s]``, runs
-each ``shard_map`` body as a loop over the shards, and calls these
-functions where the body calls a collective.  A per-shard value is a list
-of S tensors, one per device.
+``psum``, ``psum_scatter``, ``pmin``, ``pmax``).  The reference is
+single-process SPMD; so is the port: one Python process holds a ``Mesh``,
+an ordered list of S ``torch.device``s, keeps shard ``s``'s tensors on
+``mesh.devices[s]``, runs each ``shard_map`` body as a loop over the
+shards, and calls these functions where the body calls a collective.  A
+per-shard value is a list of S tensors, one per device.
 
 On distinct GPUs a collective is peer copies and a reduction on the
 destination.  Copies and kernel launches are asynchronous, so the shards'
@@ -75,6 +75,23 @@ class Mesh:
 
     def psum(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         return self._reduce(xs, torch.add)
+
+    def psum_scatter(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """``lax.psum_scatter(x, tiled=True)``: shard ``s`` gets block ``s``
+        of the sum, the leading axis cut into S equal blocks (S must divide
+        it); summed on ``devices[s]`` in shard order, as ``psum`` sums."""
+        n = self.n_shards
+        if xs[0].shape[0] % n:
+            raise ValueError(f"a leading axis of {xs[0].shape[0]} does not split "
+                             f"into {n} shards")
+        out = []
+        for s, d in enumerate(self.devices):
+            parts = [x.reshape(n, -1, *x.shape[1:])[s] for x in xs]
+            acc = _copy(parts[0], d)
+            for part in parts[1:]:
+                acc = acc + _to(part, d)
+            out.append(acc)
+        return out
 
     def pmin(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         return self._reduce(xs, torch.minimum)

@@ -4,10 +4,12 @@ Counterpart of ``repro.models.registry``.
 The reference's ``Model`` is a tuple of pure functions over a separate
 params tree (``init``, ``loss``, ``forward``, ``prefill``, ``decode``,
 ``init_decode_cache``); here it is the ``nn.Module`` holding the
-parameters, with the same entry points as methods (``cfg``, ``forward``,
-``prefill``, ``decode``, ``init_decode_cache``).  The
-sharding specs and ``input_specs`` belong to the distributed and dry-run
-paths, which are not ported yet.
+parameters, with the same entry points as methods (``cfg``, ``loss``,
+``forward``, ``prefill``, ``decode``, ``init_decode_cache``); ``init`` is
+``build_model`` itself.  The partition-spec rules (``param_pspecs``,
+``batch_pspecs``, ``cache_pspecs``, ``sanitize_pspecs``) and
+``input_specs`` belong to the production-mesh dry run, which is not ported
+yet.
 """
 from __future__ import annotations
 

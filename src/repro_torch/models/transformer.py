@@ -18,6 +18,12 @@ runs ``lax.scan`` over them; here the blocks sit in an ``nn.ModuleList``
 runs them.  The reference's ``params`` argument folds into the module:
 ``forward(model, batch)`` is ``forward(params, cfg, batch)``.
 
+Three entry points per model, as in the reference: ``loss_fn`` (training,
+differentiable end to end), ``prefill`` and ``decode_step`` (serving, under
+``torch.inference_mode``).  ``cfg.remat_policy == "layer"`` recomputes each
+block of the loop in backward (``torch.utils.checkpoint``), the reference's
+``jax.checkpoint`` of each scan body.
+
 Caches follow the reference's trees with each stacked axis a list: dense
 ``{"layers": [(k, v), ...]}``; ssm ``{"layers": [{"tm": {wkv, shift},
 "cm": shift}, ...]}``; hybrid ``{"mamba": [[{ssm, conv}, ...], ...],
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import resolve_device
 from . import layers as L
@@ -37,6 +44,18 @@ from . import mamba2 as M2
 from . import moe as MOE
 from . import rwkv6 as R6
 from .config import ModelConfig
+
+
+def _maybe_remat(body, cfg):
+    """Per-layer activation checkpointing: the block saves only its inputs;
+    its activations are recomputed during backward.  (The forward draws no
+    random numbers, so no RNG state is stashed for the recomputation.)"""
+    if cfg.remat_policy == "layer":
+        def remat(*args, **kwargs):
+            return checkpoint(body, *args, use_reentrant=False,
+                              preserve_rng_state=False, **kwargs)
+        return remat
+    return body
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +143,10 @@ def _rwkv_block_decode(p: RWKVBlock, x, cache, cfg):
     return h + cm_out, {"tm": tm_state, "cm": cm_state}
 
 
+def _mamba_layer(p: "MambaLayer", h, cfg):
+    return h + M2.mamba2_chunked(p.mamba, L.rmsnorm(h, p.ln, cfg.norm_eps), cfg)
+
+
 class MambaLayer(nn.Module):
     """``ln mamba``: one core layer of a hybrid group."""
 
@@ -203,6 +226,9 @@ class LM(nn.Module):
     def forward(self, batch: dict, *, train: bool = False):
         return forward(self, batch, train=train)
 
+    def loss(self, batch: dict):
+        return loss_fn(self, batch)
+
     def prefill(self, batch: dict):
         return prefill(self, batch)
 
@@ -259,25 +285,53 @@ def forward(model: LM, batch: dict, *, train: bool = False):
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family == "ssm":
+        body = _maybe_remat(_rwkv_block, cfg)
         h = x
         for blk in model.blocks:
-            h = _rwkv_block(blk, h, cfg)
+            h = body(blk, h, cfg)
         return _unembed(model, h), zero
 
     if cfg.family == "hybrid":
+        inner = _maybe_remat(_mamba_layer, cfg)
+        shared = _maybe_remat(_shared_apply, cfg)
         h = x
         for grp in model.blocks:
             for blk in grp:
-                h = h + M2.mamba2_chunked(
-                    blk.mamba, L.rmsnorm(h, blk.ln, cfg.norm_eps), cfg)
-            h = _shared_apply(model.shared, h, x, cfg, train=train)
+                h = inner(blk, h, cfg)
+            h = shared(model.shared, h, x, cfg, train=train)
         return _unembed(model, h), zero
 
+    body = _maybe_remat(_dense_block, cfg)
     h, aux = x, zero
     for blk in model.blocks:
-        h, a = _dense_block(blk, h, cfg, causal=causal, train=train)
+        h, a = body(blk, h, cfg, causal=causal, train=train)
         aux = aux + a
     return _unembed(model, h), aux / cfg.n_layers
+
+
+def loss_fn(model: LM, batch: dict):
+    """Next-token (or, encoder-only, masked-target) cross-entropy:
+    ``(loss + 0.01 * aux, {"nll": loss, "aux": aux})``.  The vlm family's
+    patch prefix is dropped before the shift; an optional ``loss_mask``
+    weighs the targets."""
+    cfg = model.cfg
+    logits, aux = forward(model, batch, train=True)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=model.device).float()
+    if cfg.encoder_only:
+        targets = _tokens(model, batch["targets"])
+        lp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    else:
+        tokens = _tokens(model, batch["tokens"])
+        if cfg.frontend == "vision_patches":
+            logits = logits[:, batch["patches"].shape[1]:, :]
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(lp, -1, tokens[:, 1:, None])[..., 0]
+        mask = torch.ones_like(nll) if mask is None else mask[:, 1:]
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 @torch.inference_mode()

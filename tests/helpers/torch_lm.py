@@ -1,12 +1,20 @@
 """Shared set-up of the LM parity tests (``tests/test_torch_models.py``,
-``tests/test_torch_serve_step.py``): the reference's reduced model and
+``tests/test_torch_serve_step.py``, ``tests/test_torch_training.py``,
+``tests/test_torch_data_checkpoint.py``): the reference's reduced model and
 weights, the port's model holding the same weights (through
-``repro_torch.convert.lm_from_numpy``), inputs from a numpy seed, and the
-port's caches in the reference's stacked layout."""
+``repro_torch.convert.lm_from_numpy``), inputs from a numpy seed, the
+port's caches in the reference's stacked layout, and the float32
+tolerances of logits, gradients and AdamW updates.
+
+    PYTHONPATH=src:tests python -m helpers.torch_lm
+
+prints the one-ulp sensitivity of the reference's gradients that
+``GRAD_TOL`` is derived from."""
 from __future__ import annotations
 
 from functools import lru_cache
 
+import pytest
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +44,29 @@ FAMILY_ARCH = {
 F32_TOL = {"dense": 1e-4, "moe": 1e-4, "audio": 1e-4, "vlm": 1e-4,
            "ssm": 5e-4, "hybrid": 5e-3}
 
+# float32 gradient tolerance per family, relative to each leaf's largest
+# |gradient|: max |g_port - g_ref| <= GRAD_TOL * max |g_ref|.  Derived as
+# F32_TOL was: a one-ulp random perturbation of the reference's own weights
+# moves its gradients (``loss_fn`` on ``train_batch_np(cfg)``) by 2.4e-6
+# (dense), 2.0e-6 (moe), 1.2e-6 (audio), 1.8e-6 (vlm), 1.4e-5 (rwkv6) and
+# 1.8e-4 (zamba2) of a leaf's largest value (``grad_ulp_sensitivity``);
+# each bound is about 20x that.
+GRAD_TOL = {"dense": 5e-5, "moe": 5e-5, "audio": 5e-5, "vlm": 5e-5,
+            "ssm": 3e-4, "hybrid": 4e-3}
+
 N_PATCHES = 8   # the vlm stub's patch prefix in these tests
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for a module of tiny-model tests (import
+    it into the module to turn it on): the suite runs files in parallel
+    workers, and eight threads per worker over tiny ops spend their time
+    contending for the cores.  Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def reduced(name: str, dtype: str = "float32"):
@@ -69,6 +99,76 @@ def batch_np(cfg, b: int = 2, s: int = 64, seed: int = 0) -> dict:
     if cfg.frontend == "vision_patches":
         out["patches"] = rng.normal(size=(b, N_PATCHES, cfg.frontend_dim)).astype(np.float32)
     return out
+
+
+def train_batch_np(cfg, b: int = 2, s: int = 64, seed: int = 0) -> dict:
+    """``batch_np`` plus the encoder-only model's ``targets`` and
+    ``loss_mask`` (30% of positions)."""
+    out = batch_np(cfg, b, s, seed)
+    if cfg.encoder_only:
+        rng = np.random.default_rng(seed + 1)
+        out["targets"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+        out["loss_mask"] = rng.random((b, s)) < 0.3
+    return out
+
+
+def grad_ulp_sensitivity(name: str) -> float:
+    """How far a one-ulp random perturbation of the reference's reduced f32
+    weights moves its gradients: the largest over leaves of max |dg| / max
+    |g|."""
+    from repro.models import transformer as JT
+
+    cfg, _, params = reference(name)
+    batch = j_batch(train_batch_np(cfg))
+    grad = jax.jit(jax.grad(lambda p: JT.loss_fn(p, cfg, batch)[0]))
+    rng = np.random.default_rng(1)
+
+    def bump(x):
+        x = np.asarray(x)
+        toward = (rng.choice([-1, 1], size=x.shape) * np.inf).astype(x.dtype)
+        return jnp.asarray(np.nextafter(x, toward))
+
+    g0 = jax.tree_util.tree_leaves(grad(params))
+    g1 = jax.tree_util.tree_leaves(grad(jax.tree_util.tree_map(bump, params)))
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(a).max())
+               for a, b in zip(g0, g1) if np.abs(a).max() > 0)
+
+
+def adam_allowance(g, m_prev, v_prev, step: int, lr: float, dg,
+                   b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8):
+    """How far AdamW's update ``lr * mhat / (sqrt(vhat) + eps)`` can move
+    (elementwise, float64) when the gradient ``g`` moves by up to ``dg``,
+    from moments ``m_prev``, ``v_prev`` at ``step``: the largest change over
+    nine points spanning ``[g - dg, g + dg]``.  At the first step the update
+    is ``g / (|g| + eps)``, about +-1 whatever the gradient's size, so where
+    ``|g| <= dg`` a rounding-level gradient may flip it: up to ``2 * lr``;
+    where ``|g|`` is far above ``dg`` and ``eps``, about nothing."""
+    g, m_prev, v_prev, dg = (torch.as_tensor(t).double() for t in (g, m_prev, v_prev, dg))
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+
+    def upd(gp):
+        m = b1 * m_prev + (1 - b1) * gp
+        v = b2 * v_prev + (1 - b2) * gp * gp
+        return (m / bc1) / (torch.sqrt(v / bc2) + eps)
+
+    u0 = upd(g)
+    return lr * torch.stack([(upd(g + t * dg) - u0).abs()
+                             for t in np.linspace(-1.0, 1.0, 9)]).amax(0)
+
+
+def assert_adam_params_close(got: dict, want: dict, allowance: dict, atol: float,
+                             what: str) -> None:
+    """Parameters after an AdamW step, ``{name: tensor}`` each, against the
+    reference's: within ``atol`` plus ``allowance[name]``
+    (``adam_allowance`` of the reference's gradient and the gradient
+    tolerance) elementwise."""
+    for name, w in want.items():
+        d = (got[name].detach().cpu().double() - w.double()).abs()
+        bound = allowance[name] + atol
+        worst = int(torch.argmax(d - bound))
+        assert bool((d <= bound).all()), (
+            f"{what}: {name} differs by {float(d.flatten()[worst]):.3e} (bound "
+            f"{float(bound.flatten()[worst]):.3e})")
 
 
 def j_batch(batch: dict) -> dict:
@@ -112,3 +212,9 @@ def assert_trees_close(got, want, tol: float, what: str) -> None:
     for g, w in zip(g_leaves, w_leaves):
         np.testing.assert_allclose(to_np(g), to_np(w), rtol=tol, atol=tol,
                                    err_msg=what)
+
+
+if __name__ == "__main__":
+    for fam, arch in FAMILY_ARCH.items():
+        print(f"{fam:7s} {arch:22s} one-ulp gradient sensitivity "
+              f"{grad_ulp_sensitivity(arch):.2e}")
