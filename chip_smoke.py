@@ -4,8 +4,8 @@ each against its plain PyTorch version, drive the main path
 the SPG serve step, the dense expansion's path, the live serving tier
 (stream, replicas, metrics), the epoch-versioned edge updates, the
 multi-device paths (four shards on the one card), the baselines, the
-serving CLI, the LM serving path and the LM training path (``qwen1.5-4b``
-at full width), and check the answers.
+serving CLI, the LM serving path, the LM training path (``qwen1.5-4b``
+at full width) and the production-mesh dry run, and check the answers.
 
     python3 chip_smoke.py                      # 1.1 M-vertex BA graph, R = 20
     python3 chip_smoke.py --n-vertices 100000  # a quicker rehearsal
@@ -105,6 +105,16 @@ Phases (each raises on failure; nothing is caught):
    restored and replayed on the card, bit-identical under
    ``torch.use_deterministic_algorithms``; it must launch none of the
    port's kernels;
+   the production-mesh dry run (``dryrun``, ``dryrun_phase``): the
+   ``repro_torch.launch.dryrun`` CLI over every cell on the host (no cell
+   may fail; ok / skipped / failed and the wall time printed); its
+   one-card prediction for ``qwen1.5-4b`` train at 2 x 512 held exactly
+   to the card (``argument_bytes`` to the parameters', moments', step's
+   and batch's ``nbytes``; ``flops_global`` to ``FlopCounterMode`` over a
+   real step), with its bound beside the measured step; and the
+   ``qbs-scale-serve`` per-shard ``argument_bytes`` at this graph over the
+   mesh's shards held exactly to what ``scale_serve`` handed each shard;
+   it must launch none of the port's kernels;
 8. the kernels' JSON line, then the device line last.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero without
@@ -113,7 +123,9 @@ a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -1216,17 +1228,42 @@ def scale_serve_phase(core, ops, g, idx_h, us, vs, res_h, rows, mesh):
     """``scale_serve`` (edge-aligned int16 source labels) on one chunk of
     general pairs with the hybrid index's scheme; distances and undirected
     SPG edges equal to the hybrid index's answers.  The counters are set to
-    0 just before the call and read just after."""
-    from repro_torch.core.scale_serve import scale_serve
+    0 just before the call and read just after.  Returns the counts and the
+    bytes each shard's step was handed (``placed``): its own blocks (edges,
+    int16 labels, edge-aligned source labels, landmarks), the inputs every
+    shard reads from ``mesh.devices[0]`` (the meta pair, the queries) and
+    its entry of ``vstart``, which the port keeps on the host."""
+    import repro_torch.core.scale_serve as ss
 
     depth = search_depth(core, idx_h)
+    placed = {}
+    make_step = ss.make_scale_serve_step
+
+    def recording(mesh_, **kw):
+        step = make_step(mesh_, **kw)
+
+        def rec(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
+                meta_w, meta_dist, us_, vs_):
+            shared = sum(t.nbytes for t in (meta_w, meta_dist, us_, vs_))
+            placed["per_shard"] = [
+                sum(t[k].nbytes for t in (src_sh, dst_sh, labels_sh, lsrc_sh,
+                                          landmarks_sh)) + shared + vstart[k:k + 1].nbytes
+                for k in range(mesh_.n_shards)]
+            return step(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
+                        meta_w, meta_dist, us_, vs_)
+        return rec
+
     sync_all()
     ops.reset_launches()
-    t0 = time.perf_counter()
-    pairs, dist = scale_serve(g, idx_h.scheme, mesh, us[rows], vs[rows],
-                              max_levels=depth, max_chain=depth)
-    sync_all()
-    dt = time.perf_counter() - t0
+    ss.make_scale_serve_step = recording
+    try:
+        t0 = time.perf_counter()
+        pairs, dist = ss.scale_serve(g, idx_h.scheme, mesh, us[rows], vs[rows],
+                                     max_levels=depth, max_chain=depth)
+        sync_all()
+        dt = time.perf_counter() - t0
+    finally:
+        ss.make_scale_serve_step = make_step
     counts = dict(ops.LAUNCHES)
     src = g.src.cpu().numpy()
     dst = g.dst.cpu().numpy()
@@ -1239,7 +1276,7 @@ def scale_serve_phase(core, ops, g, idx_h, us, vs, res_h, rows, mesh):
     log(f"[scale_serve] {rows.size} general pairs over {mesh.n_shards} shards "
         f"== hybrid (dist and SPG edges): {dt:.2f} s including the host "
         f"partition; launches {counts}")
-    return counts
+    return counts, placed
 
 
 def spg_serve_step_phase(ops, idx_h, us, vs, res_h, general, chunk):
@@ -1769,6 +1806,125 @@ def train_phase(ops, seed: int = 0):
     return dict(ops.LAUNCHES)
 
 
+def dryrun_phase(ops, core, g, mesh, n_queries, scale_placed):
+    """The port's production-mesh dry run, held to the card:
+
+    1. ``python -m repro_torch.launch.dryrun --cells all --mesh both`` in
+       process, on the host, into a temporary directory: every cell must
+       trace (none may record an error);
+    2. its one-card prediction for ``qwen1.5-4b`` at the train phase's own
+       shape (2 x 512, a one-device mesh) against a real train step on the
+       card: ``argument_bytes`` equals the summed ``nbytes`` of the
+       parameters, the AdamW moments and step and the batch, and
+       ``flops_global`` equals ``FlopCounterMode`` over one step, both
+       exactly; the bound max(FLOPs / 989e12, bytes / 3.35e12) beside the
+       measured step (no gate);
+    3. the ``qbs-scale-serve`` cell's per-shard ``argument_bytes``,
+       computed for this graph at the mesh's shard count, equals the bytes
+       that ``scale_serve_phase`` handed each shard's step, exactly.
+
+    The counters are set to 0 before it and read after: it launches no
+    kernel of the port's."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.training import adamw, make_train_step, warmup_cosine
+
+    ops.reset_launches()
+    # 1. every cell, on the host (the CLI's line per cell is kept out of the
+    # output; a failed cell's error is printed below)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = D.main(["--cells", "all", "--mesh", "both", "--results", root])
+        tally = {"ok": 0, "skipped": 0, "failed": 0}
+        for path in sorted(Path(root).iterdir()):
+            cell = json.loads(path.read_text())
+            tally["failed" if "error" in cell else
+                  "skipped" if "skipped" in cell else "ok"] += 1
+            if "error" in cell:
+                log(f"[dryrun] {path.stem}: {cell['error']}")
+    wall = time.perf_counter() - t0
+    log(f"[dryrun] --cells all --mesh both on the host: {tally['ok']} ok, "
+        f"{tally['skipped']} skipped, {tally['failed']} failed in {wall:.1f} s")
+    if rc != 0 or tally["failed"]:
+        raise AssertionError(f"[dryrun] {tally['failed']} cells failed")
+
+    # 2. qwen1.5-4b train at 2 x 512 on one card: the prediction, then the card
+    cfg = get_config("qwen1.5-4b")
+    shape = ShapeCell("train_2x512", "train", 512, 2)
+    pred = D.lm_cell(cfg, shape, NamedMesh(["meta"], ("data", "model"), (1, 1)))
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = adamw(warmup_cosine(3e-4, 2000, 100_000))
+    opt_state = opt.init(params)
+    source = SyntheticLM(SyntheticLMConfig(cfg.vocab_size, seq_len=shape.seq_len,
+                                           global_batch=shape.global_batch, seed=0))
+    batch = to_device(source.batch_at(0), dev)
+    card_bytes = (sum(p.nbytes for p in params.values())
+                  + sum(t.nbytes for t in opt_state["mu"].values())
+                  + sum(t.nbytes for t in opt_state["nu"].values())
+                  + opt_state["step"].nbytes + sum(t.nbytes for t in batch.values()))
+    step_fn = make_train_step(model, opt)
+    step_fn(model, opt_state, batch)                  # warm-up
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        step_fn(model, opt_state, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    t_flops = pred["flops_global"] / BF16_TC_FLOPS * 1e3
+    t_bytes = pred["bytes_accessed_global"] / HBM_BYTES_PER_S * 1e3
+    log(f"[dryrun] {cfg.name} train 2 x 512, one device: argument_bytes predicted "
+        f"{pred['memory']['argument_bytes']}, on the card {card_bytes}; flops_global "
+        f"predicted {pred['flops_global']}, FlopCounterMode on the card {card_flops}; "
+        f"counted-work time max({t_flops:.2f} ms of FLOPs at 989 TFLOP/s, "
+        f"{t_bytes:.2f} ms for the counter's unfused op traffic of "
+        f"{pred['bytes_accessed_global'] / 1e9:.1f} GB at 3.35 TB/s) = "
+        f"{max(t_flops, t_bytes):.2f} ms (an estimate of the eager step, not a "
+        f"lower bound) beside the measured step {step_ms:.2f} ms "
+        f"(median of 3); transcendentals {pred['transcendentals_global']}, "
+        f"{pred['n_ops']} aten ops traced in {pred['trace_s']} s")
+    if card_bytes != pred["memory"]["argument_bytes"]:
+        raise AssertionError(f"[dryrun] argument_bytes: predicted "
+                             f"{pred['memory']['argument_bytes']}, the card holds {card_bytes}")
+    if card_flops != pred["flops_global"]:
+        raise AssertionError(f"[dryrun] flops_global: predicted {pred['flops_global']}, "
+                             f"FlopCounterMode on the card {card_flops}")
+    del model, params, opt_state, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the scale-serve cell's per-shard argument bytes at this graph
+    part = core.distributed.partition_edges(g, mesh.n_shards)
+    want = D.scale_serve_args(part.v_loc, part.e_max, 20, n_queries)
+    log(f"[dryrun] qbs-scale-serve at this graph over {mesh.n_shards} shards "
+        f"(v_loc {part.v_loc}, e_max {part.e_max}, R 20, batch {n_queries}): "
+        f"argument_bytes predicted {want} per shard, handed to the shards "
+        f"{scale_placed['per_shard']}")
+    if any(b != want for b in scale_placed["per_shard"]):
+        raise AssertionError("[dryrun] qbs-scale-serve argument_bytes disagree")
+    return dict(ops.LAUNCHES)
+
+
 def graph_and_queries(core, n_vertices, n_random, n_landmarks=20):
     """The 1.1 M-vertex graph and the query batch: ``n_random`` random
     pairs, 8 landmark pairs, 8 one-sided pairs and 2 ``u == v``."""
@@ -1932,8 +2088,8 @@ def main() -> int:
     launches["sharded"] = sharded_phase(core, ops, g, idx_h, us, vs, res_h, lanes,
                                         chunk, mesh, args.breakdown)
     launches["mesh_service"] = mesh_service_phase(ops, idx_h, us, vs, res_h, mesh)
-    launches["scale_serve"] = scale_serve_phase(core, ops, g, idx_h, us, vs, res_h,
-                                                lanes["general"][:chunk], mesh)
+    launches["scale_serve"], scale_placed = scale_serve_phase(
+        core, ops, g, idx_h, us, vs, res_h, lanes["general"][:chunk], mesh)
     gc.collect()
     torch.cuda.empty_cache()
     for path, names in (("spg_serve_step", ("sketch_batch", "hybrid_relay")),
@@ -1991,6 +2147,13 @@ def main() -> int:
     launches["train"] = train_phase(ops)
     if any(launches["train"].values()):
         raise AssertionError(f"the training path launched {launches['train']}")
+
+    # the production-mesh dry run (on the host; no kernel of the port's)
+    clock("dryrun starts")
+    launches["dryrun"] = dryrun_phase(ops, core, g, mesh, lanes["general"][:chunk].size,
+                                      scale_placed)
+    if any(launches["dryrun"].values()):
+        raise AssertionError(f"the dry run launched {launches['dryrun']}")
 
     clock("results")
     # phase 8: results

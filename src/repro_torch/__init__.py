@@ -8,7 +8,8 @@ entry point puts its tensors on the CUDA card unless the caller passes
 substrate (``models``, ``configs``; serving: the prefill/decode steps and
 ``greedy_generate`` in ``serving``; training: ``training``, ``data``,
 ``checkpoint``, ``distributed`` and ``launch.train``) runs on torch ops and
-cuBLAS.
+cuBLAS; its production-mesh dry run (``launch.dryrun``) traces every cell
+on the meta device and needs no card.
 
     from repro_torch.core import QbSIndex, barabasi_albert_graph
     g = barabasi_albert_graph(100_000, 3, seed=0)

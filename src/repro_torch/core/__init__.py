@@ -34,7 +34,7 @@ from .labelling import (
     meta_apsp,
     update_labelling,
 )
-from .mesh import Mesh
+from .mesh import Mesh, NamedMesh
 from .packing import (
     PackedLabels,
     choose_pack_dtype,
@@ -65,7 +65,7 @@ __all__ = [
     "pack_labelling", "packed_size_bytes", "patch_packed", "unpack_bits",
     "widen_dist",
     "QbSIndex", "SPGResult",
-    "Mesh", "ShardedIndex", "ShardedLabels", "distributed_build_sharded",
+    "Mesh", "NamedMesh", "ShardedIndex", "ShardedLabels", "distributed_build_sharded",
     "Query", "SearchContext", "SearchResult", "guided_search",
     "make_search_context",
     "SketchBatch", "compute_sketch_batch", "d_top_only",

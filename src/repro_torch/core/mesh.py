@@ -108,6 +108,35 @@ class Mesh:
         return [acc] + [_copy(acc, d) for d in self.devices[1:]]
 
 
+class NamedMesh(Mesh):
+    """A ``Mesh`` with named axes, the counterpart of ``jax.sharding.Mesh``'s
+    ``axis_names`` and ``shape``: ``devices`` lie in row-major order over
+    the axes (the last axis fastest), so shard ``s`` sits at
+    ``coords(s)``.  Everything the flat ``Mesh`` does (``n_shards``, the
+    placement, the collectives) is unchanged, so a sharded path runs on a
+    ``NamedMesh`` exactly as on its flat list of devices."""
+
+    def __init__(self, devices: Sequence, axis_names: Sequence[str],
+                 axis_sizes: Sequence[int]):
+        super().__init__(devices)
+        if len(axis_names) != len(axis_sizes):
+            raise ValueError(f"{len(axis_names)} axis names for "
+                             f"{len(axis_sizes)} axis sizes")
+        if int(np.prod(axis_sizes)) != self.n_shards:
+            raise ValueError(f"axes {tuple(axis_sizes)} need "
+                             f"{int(np.prod(axis_sizes))} devices, got {self.n_shards}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in axis_sizes)))
+
+    def coords(self, s: int) -> dict[str, int]:
+        """Shard ``s``'s index along each axis."""
+        idx = np.unravel_index(s, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    def __repr__(self) -> str:
+        return f"NamedMesh({self.shape}, {self.devices[0]}...)"
+
+
 def on_device(device: torch.device):
     """Make ``device`` current for the block where it is a CUDA device: the
     hand-written kernels launch on the current device's stream."""
