@@ -636,62 +636,31 @@ def time_lanes(idx, ops, us, vs, lanes, chunk, label=None):
             f"per chunk {per_chunk}")
 
 
-def breakdown(core, idx, us, vs):
-    """Where a general-lane chunk's time goes: host-timed stages (each ends
-    in a synchronize), then a torch.profiler trace of one ``serve_step`` for
-    the device's busy share and the top kernels by device time."""
-    from repro_torch.core import search, sketch
-    from repro_torch.core.packing import take
-    from repro_torch.core.qbs import _symmetrize
+def breakdown(idx, us, vs):
+    """Where a general-lane chunk's time goes: one ``serve_step`` under
+    torch.profiler, read back from the program's own spans and counters
+    (``repro_torch.trace``): per stage, calls, host ms, device ms and the
+    device ms left after its child stages."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
 
     us_t = torch.as_tensor(us, dtype=torch.int32, device=idx.device)
     vs_t = torch.as_tensor(vs, dtype=torch.int32, device=idx.device)
     idx.serve_step(us_t, vs_t)            # warm
     torch.cuda.synchronize()
-    stages = {}
-
-    def stage(name, fn):
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        idx.serve_step(us_t, vs_t)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
-        return out
-
-    t_all = time.perf_counter()
-    ctx, V = idx.ctx, idx.graph.n_vertices
-    sk = stage("sketch", lambda: sketch.compute_sketch_batch(
-        take(idx.packed.label_dist, us_t.long()), take(idx.packed.label_dist, vs_t.long()),
-        idx.packed.meta_w, idx.packed.meta_dist))
-    q = search.Query(u=us_t, v=vs_t, d_top=sk.d_top, du_land=sk.du_land,
-                     dv_land=sk.dv_land, meta_edge=sk.meta_edge,
-                     d_star_u=sk.d_star_u, d_star_v=sk.d_star_v)
-    du, dv, _, _, _, _, met = stage("bidirectional_bfs", lambda: search.bidirectional_bfs(
-        ctx, q, V, idx.max_levels))
-    common = (du < core.INF) & (dv < core.INF)
-    d_minus = torch.where(common, du + dv, core.INF).amin(dim=1)
-    rev_rows = torch.nonzero(met & (d_minus <= q.d_top) & (us_t != vs_t))[:, 0]
-    rec_rows = torch.nonzero((q.d_top < core.INF) & (q.d_top <= d_minus)
-                             & (us_t != vs_t))[:, 0]
-    if rev_rows.numel():
-        stage("reverse_search", lambda: search.reverse_search(
-            ctx, du[rev_rows], dv[rev_rows], d_minus[rev_rows]))
-    if rec_rows.numel():
-        sub = search.Query(*(t[rec_rows] for t in q))
-        stage("side_attach_u", lambda: search._side_attach(
-            ctx, du[rec_rows], sub.du_land, V, idx.max_chain))
-        stage("side_attach_v", lambda: search._side_attach(
-            ctx, dv[rec_rows], sub.dv_land, V, idx.max_chain))
-        stage("delta_edges", lambda: search._delta_edges(ctx, sub.meta_edge))
-    mask = torch.zeros((us_t.shape[0], idx.graph.n_edges), dtype=torch.bool,
-                       device=idx.device)
-    stage("symmetrize", lambda: _symmetrize(d_minus, mask, idx._rev_edge_t))
-    total = time.perf_counter() - t_all
-    log(f"[{idx.backend}] general chunk of {us.size}: {total * 1e3:.1f} ms; "
-        f"reverse rows {rev_rows.numel()}, recover rows {rec_rows.numel()}; "
-        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
-
-    profile_step(idx.backend, lambda: idx.serve_step(us_t, vs_t))
+    r = trace.report()
+    log(f"[{idx.backend}] general chunk of {us.size} under the profiler, "
+        f"by span (calls, host ms, device ms, self device ms):")
+    for name, sp in r["spans"].items():
+        log(f"    qbs.{name:<16s} x{sp['calls']:<3d} {sp['host_ms']:9.2f} "
+            f"{sp['device_ms']:9.2f} {sp['self_device_ms']:9.2f}")
+    log(f"[{idx.backend}] counters {r['counters']}")
+    trace.reset()
 
 
 def profile_step(label, step, top: int = 8, what: str = "serve_step"):
@@ -1974,8 +1943,8 @@ def main() -> int:
     ap.add_argument("--n-vertices", type=int, default=1_100_000)
     ap.add_argument("--n-random", type=int, default=256)
     ap.add_argument("--breakdown", action="store_true",
-                    help="also time the general lane's stages on one chunk and "
-                         "trace it with torch.profiler")
+                    help="also report one general chunk per backend by the "
+                         "program's trace spans, and profile a sharded chunk")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2067,7 +2036,7 @@ def main() -> int:
     if args.breakdown:
         first = lanes["general"][:chunk]
         for idx in (idx_h, idx_s, idx_c):
-            breakdown(core, idx, us[first], vs[first])
+            breakdown(idx, us[first], vs[first])
     # an index and its default service reference each other, so only the
     # cycle collector frees them: collect now, or the memory figures below
     # depend on when it happens to run

@@ -37,6 +37,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from .. import trace
 from .frontier import bfs_depths_batch, make_relay
 from .graph import (
     INF,
@@ -213,19 +214,24 @@ class QbSIndex:
         """The general lane: one chunk ``(B,)`` int32 through sketch + guided
         search + symmetrization -> device ``(dist (B,), edge_mask (B, E))``.
         Landmark-endpoint rows are garbage here; the planner routes them to
-        the landmark lane steps."""
-        label_dist = self.packed.label_dist
-        lu = take(label_dist, us.to(torch.int64))
-        lv = take(label_dist, vs.to(torch.int64))
-        sk = compute_sketch_batch(lu, lv, self.packed.meta_w,
-                                  self.packed.meta_dist)
-        q = Query(u=us, v=vs, d_top=sk.d_top, du_land=sk.du_land,
-                  dv_land=sk.dv_land, meta_edge=sk.meta_edge,
-                  d_star_u=sk.d_star_u, d_star_v=sk.d_star_v)
-        res = guided_search(self.ctx, q, self.graph.n_vertices,
-                            max_levels=self.max_levels,
-                            max_chain=self.max_chain)
-        return _symmetrize(res.dist, res.edge_mask, self._rev_edge_t)
+        the landmark lane steps.  Under a profiler each call is one chunk of
+        ``trace`` spans: ``serve_step`` over ``sketch``, the search's stages
+        and ``symmetrize``."""
+        with trace.span("serve_step", us, chunk=True):
+            with trace.span("sketch", us):
+                label_dist = self.packed.label_dist
+                lu = take(label_dist, us.to(torch.int64))
+                lv = take(label_dist, vs.to(torch.int64))
+                sk = compute_sketch_batch(lu, lv, self.packed.meta_w,
+                                          self.packed.meta_dist)
+            q = Query(u=us, v=vs, d_top=sk.d_top, du_land=sk.du_land,
+                      dv_land=sk.dv_land, meta_edge=sk.meta_edge,
+                      d_star_u=sk.d_star_u, d_star_v=sk.d_star_v)
+            res = guided_search(self.ctx, q, self.graph.n_vertices,
+                                max_levels=self.max_levels,
+                                max_chain=self.max_chain)
+            with trace.span("symmetrize", us):
+                return _symmetrize(res.dist, res.edge_mask, self._rev_edge_t)
 
     def landmark_pair_step(self, ru: torch.Tensor, rv: torch.Tensor):
         """Landmark-landmark lane: (B,) landmark-index pairs -> device

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from .frontier import FrontierEngine, make_relay, segment_or
 from .graph import INF, Graph
 from .packing import PackedLabels, pack_dist, pack_labelling, widen_dist
@@ -164,8 +165,10 @@ def bidirectional_bfs(ctx: SearchContext, q: Query, n_vertices: int,
     while True:
         s = d_u + d_v
         active = (s < q.d_top) & (s < max_levels) & ~met & (alive_u | alive_v)
+        trace.count("search.host_syncs")
         if not bool(active.any()):
             break
+        trace.count("search.bfs_levels")
         # pick_search: prefer the side whose sketch budget d* is unmet; on a
         # tie use the smaller explored ball (paper's |P_u| vs |P_v| rule)
         want_u = q.d_star_u > d_u
@@ -218,6 +221,7 @@ def reverse_search(ctx: SearchContext, depth_u: torch.Tensor,
                             device=depth.device)
         while True:
             act = level >= 1
+            trace.count("search.host_syncs")
             if not bool(act.any()):
                 break
             lc = level[:, None]
@@ -277,6 +281,8 @@ def _side_attach(ctx: SearchContext, depth: torch.Tensor,
             on[r] |= grown
         changed = bool(moved)   # one host sync per closure step
         it += 1
+        trace.count("search.closure_steps")
+        trace.count("search.host_syncs")
 
     # interior edges: both endpoints certified, label distance decrements
     e = ctx.src.shape[0]
@@ -317,10 +323,13 @@ def _delta_edges(ctx: SearchContext, meta_edge: torch.Tensor) -> torch.Tensor:
     dst = ctx.dst.to(torch.int64)
     ld_t = ld.T.contiguous()                         # (R, V)
     w_host = w.tolist()
+    trace.count("search.host_syncs")
     at_src: dict[int, torch.Tensor] = {}
     at_dst: dict[int, torch.Tensor] = {}
     minval = torch.full((b, e), 3 * INF, dtype=torch.int32, device=dev)
-    for row, i, j in torch.nonzero(fin).tolist():
+    triples = torch.nonzero(fin).tolist()
+    trace.count("search.host_syncs", 2)   # the nonzero, then the copy
+    for row, i, j in triples:
         if i not in at_src:
             at_src[i] = ld_t[i][src]
         if j not in at_dst:
@@ -337,6 +346,7 @@ def _delta_edges(ctx: SearchContext, meta_edge: torch.Tensor) -> torch.Tensor:
         eid, r_idx, other, other_lm = at
         keep = ~other_lm
         eid, r_idx, other = eid[keep], r_idx[keep], other[keep]
+        trace.count("search.host_syncs", 3)   # a boolean index is a nonzero
         match = torch.zeros((b, eid.shape[0]), dtype=torch.bool, device=dev)
         for j in range(n_r):
             match |= ld[other, j][None, :] == table[:, r_idx, j]
@@ -356,9 +366,13 @@ def _delta_edges(ctx: SearchContext, meta_edge: torch.Tensor) -> torch.Tensor:
 def recover_search(ctx: SearchContext, q: Query, depth_u: torch.Tensor,
                    depth_v: torch.Tensor, n_vertices: int,
                    max_chain: int) -> torch.Tensor:
-    e_u, _ = _side_attach(ctx, depth_u, q.du_land, n_vertices, max_chain)
-    e_v, _ = _side_attach(ctx, depth_v, q.dv_land, n_vertices, max_chain)
-    return e_u | e_v | _delta_edges(ctx, q.meta_edge)
+    with trace.span("search.attach", depth_u):
+        e_u, _ = _side_attach(ctx, depth_u, q.du_land, n_vertices, max_chain)
+    with trace.span("search.attach", depth_v):
+        e_v, _ = _side_attach(ctx, depth_v, q.dv_land, n_vertices, max_chain)
+    with trace.span("search.delta", depth_u):
+        delta = _delta_edges(ctx, q.meta_edge)
+    return e_u | e_v | delta
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +384,11 @@ def guided_search(ctx: SearchContext, q: Query, n_vertices: int,
     """The reverse and recover stages run only on the rows whose answer
     reads them (rows are independent, so the subset gives the same bits
     the masked full batch would)."""
-    depth_u, depth_v, d_u, d_v, _, _, met = bidirectional_bfs(
-        ctx, q, n_vertices, max_levels)
+    b = q.u.shape[0]
+    trace.count("search.rows", b)
+    with trace.span("search.bfs", q.u):
+        depth_u, depth_v, d_u, d_v, _, _, met = bidirectional_bfs(
+            ctx, q, n_vertices, max_levels)
 
     common = (depth_u < INF) & (depth_v < INF)
     d_minus = torch.where(common, depth_u + depth_v, INF).amin(dim=1)
@@ -380,13 +397,17 @@ def guided_search(ctx: SearchContext, q: Query, n_vertices: int,
     recover_on = (q.d_top < INF) & (q.d_top <= d_minus)
     trivial = q.u == q.v
 
-    edge_mask = torch.zeros((q.u.shape[0], ctx.src.shape[0]), dtype=torch.bool,
+    edge_mask = torch.zeros((b, ctx.src.shape[0]), dtype=torch.bool,
                             device=depth_u.device)
-    rows = torch.nonzero(reverse_on & ~trivial)[:, 0]
-    if rows.numel():
-        edge_mask[rows] |= reverse_search(ctx, depth_u[rows], depth_v[rows],
-                                          d_minus[rows])
+    with trace.span("search.reverse", q.u):
+        rows = torch.nonzero(reverse_on & ~trivial)[:, 0]
+        trace.count("search.host_syncs")
+        if rows.numel():
+            edge_mask[rows] |= reverse_search(ctx, depth_u[rows], depth_v[rows],
+                                              d_minus[rows])
     rows = torch.nonzero(recover_on & ~trivial)[:, 0]
+    trace.count("search.host_syncs")
+    trace.count("search.recover_rows", rows.numel())
     if rows.numel():
         sub = Query(*(t[rows] for t in q))
         edge_mask[rows] |= recover_search(ctx, sub, depth_u[rows],

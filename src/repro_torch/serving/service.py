@@ -40,6 +40,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.distributed import make_serve_step
 from ..core.graph import INF
 from ..core.mesh import Mesh, resolve_mesh
@@ -68,10 +69,11 @@ def edge_ids_of(dist: torch.Tensor, mask: torch.Tensor,
     ``(row, slot)`` pairs from ``torch.nonzero`` on the mask, so per row
     they come out ascending, exactly as ``np.flatnonzero`` of the mask row
     would give them."""
-    nz = torch.nonzero(mask[:live]).cpu().numpy()
-    d = dist[:live].cpu().numpy()
-    cuts = np.searchsorted(nz[:, 0], np.arange(1, live))
-    return d, np.split(nz[:, 1].astype(np.int32), cuts)
+    with trace.span("drain", mask):
+        nz = torch.nonzero(mask[:live]).cpu().numpy()
+        d = dist[:live].cpu().numpy()
+        cuts = np.searchsorted(nz[:, 0], np.arange(1, live))
+        return d, np.split(nz[:, 1].astype(np.int32), cuts)
 
 
 def _pack_result(value: tuple[int, np.ndarray]) -> tuple:
