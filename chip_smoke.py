@@ -28,19 +28,24 @@ Phases (each raises on failure; nothing is caught):
    the G- engines at K = 1, 32 and 40, against its plain version and
    timed beside cuSPARSE's SpMM (``torch.sparse.mm``) on the relay as an
    f32 CSR matrix, the one library call that computes it, and the PyTorch
-   ops that relayed before it (not one call);
+   ops that relayed before it (not one call); then the side attach
+   (``check_side_attach``) on the same index's real depth tables at
+   B' in {1, 31, 32, 33, 70, 128}, ``max_chain`` 1 and the index's own,
+   uint8 and uint16 labels, against its plain version bit for bit and
+   timed beside it and its bytes bound;
 4. the main path: ``barabasi_albert_graph(1_100_000, 3, seed=0)``,
    ``QbSIndex.build(backend="hybrid")`` and ``query_batch`` on every lane,
    then the same with ``backend="segment"`` and with ``backend="csr"``
    (``block_size = 1 << 21``, so the blocked loop runs), which must give
    the same tables and answers; the launch counters are set to 0 just
    before each backend's run and read just after (hybrid must launch
-   ``sketch_batch`` and ``hybrid_relay``, segment and csr ``sketch_batch``
-   only);
+   ``sketch_batch``, ``hybrid_relay`` and ``side_attach``, segment and csr
+   ``sketch_batch`` and ``side_attach`` only);
    then the SPG serve step on the hybrid index (``spg_serve_step``):
    ``make_spg_serve_step`` on one 32-row general chunk and
    ``serve_spg_batch`` on the 274 queries, each equal to ``query_batch``'s
-   answers; ``sketch_batch`` once per general chunk, ``hybrid_relay``;
+   answers; ``sketch_batch`` once per general chunk, ``hybrid_relay``,
+   ``side_attach``;
 5. the min-plus kernel's path: ``core.sketch.d_top_only`` (one ``minplus``
    launch and nothing else) on the hybrid index's label rows of the
    general pairs, which must equal the fused kernel's d_top and the plain
@@ -53,8 +58,8 @@ Phases (each raises on failure; nothing is caught):
    it and read just after:
    the stream (``make_stream`` under ``ManualClock``, two QoS classes, the
    hub cache with reuse admission; the 274 queries in bursts, twice; every
-   future equal to ``query_batch``; ``sketch_batch`` and ``hybrid_relay``
-   only), then one ``SystemClock`` stream whose lone query its deadline
+   future equal to ``query_batch``; ``sketch_batch``, ``hybrid_relay`` and
+   ``side_attach`` only), then one ``SystemClock`` stream whose lone query its deadline
    timer must resolve (not counted);
    the replicas (``ReplicaRouter``, 2 replicas, drain and restore of one,
    the Prometheus text scraped over HTTP; the same answers and kernels);
@@ -72,7 +77,8 @@ Phases (each raises on failure; nothing is caught):
    equal to the hybrid answers, ``sketch_batch`` only; ``max_levels`` and
    ``max_chain`` sized from the landmarks' measured eccentricity), then
    ``mesh_service`` (``ServingService(idx_h, mesh=...)``: general chunks
-   split over the shards, ``sketch_batch`` and ``hybrid_relay``) and
+   split over the shards, ``sketch_batch``, ``hybrid_relay`` and
+   ``side_attach``) and
    ``scale_serve`` (one chunk of general pairs, ``sketch_batch`` only);
 6. 8 sampled answers against a scipy BFS oracle; the baselines on the
    card: Bi-BFS on 32 general pairs and the two-BFS oracle on 2 pairs of
@@ -552,6 +558,91 @@ def check_hybrid_relay(core, ops, ref, idx_h):
                     pytorch_ops_ms=t["PyTorch ops, not one call"])
         del mat
     return row
+
+
+def attach_bytes(b, v, r, e, ld_bytes):
+    """Bytes one side's attach must move: each input read once (depth,
+    sigma, the labels, the CSR's indptr and the slots' two ends, lid) and
+    the (B, E) bools written once.  The word table is the kernels' own
+    state and is not counted: its words are sparse (a few hundred of 22 M
+    nonzero at B = 32 here), though zeroing and each closure step's copy
+    move all of it."""
+    return (4 * b * v + 4 * b * r + v * r * ld_bytes + 4 * (v + 1) + 8 * e
+            + 4 * v + b * e)
+
+
+def check_side_attach(core, ops, ref, idx_h, us, vs):
+    """The side attach's kernels on the real hybrid index: depth tables of
+    the general pairs' u sides from ``bidirectional_bfs`` on the G- engine,
+    their sketches' sigma rows, at B' in {1, 31, 32, 33, 70, 128}, with
+    ``max_chain`` 1 and the index's own, on the uint8 label table and on
+    the same labels as uint16; the kernel == the plain version bit for bit
+    (edge mask and word table), and == across the two dtypes.  Kernel and
+    plain times at B' = 32 beside the bound of the bytes the attach must
+    move.  Returns the JSON row."""
+    from repro_torch.core.packing import pack_dist, take
+    from repro_torch.core.search import Query, bidirectional_bfs
+
+    ctx = idx_h.ctx
+    v = idx_h.graph.n_vertices
+    e = idx_h.graph.n_edges
+    n = 128
+    sel = np.resize(np.arange(us.size), n)
+    u = torch.as_tensor(us[sel], dtype=torch.int32, device=idx_h.device)
+    w = torch.as_tensor(vs[sel], dtype=torch.int32, device=idx_h.device)
+    lab = idx_h.packed.label_dist
+    sk = ops.sketch_batch(take(lab, u.long()), take(lab, w.long()),
+                          idx_h.packed.meta_w, idx_h.packed.meta_dist)
+    q = Query(u, w, *sk)
+    depth = bidirectional_bfs(ctx, q, v, idx_h.max_levels)[0]
+    sigma = sk[1]
+    tables = {"uint8": ctx.label_dist,
+              "uint16": pack_dist(core.widen_dist(ctx.label_dist), np.uint16)}
+    graph_args = (ctx.indptr, ctx.src, ctx.dst, ctx.lid)
+    for b in (1, 31, 32, 33, 70, 128):
+        for mc in (1, idx_h.max_chain):
+            got = {}
+            for name, ld in tables.items():
+                args = (depth[:b].contiguous(), sigma[:b].contiguous(), ld,
+                        *graph_args, mc)
+                before = ops.LAUNCHES["side_attach"]
+                k_e, k_on = ops.side_attach(*args)
+                launches = ops.LAUNCHES["side_attach"] - before
+                p_e, p_on = ref.side_attach_ref(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(k_e, p_e) and torch.equal(k_on, p_on)):
+                    raise AssertionError(f"side_attach (B'={b}, max_chain={mc}, "
+                                         f"{name}): kernel and plain disagree")
+                got[name] = (k_e, k_on)
+            if not all(torch.equal(a, c) for a, c in zip(got["uint8"], got["uint16"])):
+                raise AssertionError(f"side_attach (B'={b}, max_chain={mc}): "
+                                     f"uint8 and uint16 tables disagree")
+            log(f"side_attach B'={b} max_chain={mc}: kernel == plain on uint8 and "
+                f"uint16 labels; {launches} launches, {int(k_on.ne(0).sum())} "
+                f"nonzero words, {int(k_e.sum())} edge marks")
+            del got, k_e, k_on, p_e, p_on
+    b, mc = 32, idx_h.max_chain
+    args = (depth[:b].contiguous(), sigma[:b].contiguous(), ctx.label_dist,
+            *graph_args, mc)
+    before = ops.LAUNCHES["side_attach"]
+    ops.side_attach(*args)
+    steps = ops.LAUNCHES["side_attach"] - before - 2
+    t = measure(f"side_attach B'={b} ({v} vertices, {e} slots, R = "
+                f"{ctx.label_dist.shape[1]}, {steps} closure step(s))", {
+                    "kernel": lambda: ops.side_attach(*args),
+                    "plain": lambda: ref.side_attach_ref(*args)},
+                reps=10, calls=5, profiled=10)
+    n_bytes = attach_bytes(b, v, ctx.label_dist.shape[1], e,
+                           ctx.label_dist.element_size())
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    log(f"  bound {b_ms * 1e3:.2f} us by {b_by} ({n_bytes} bytes); per "
+        "launch " + ", ".join(f"{k} {x:.2f} us" for k, x in kernel_split(
+            lambda: ops.side_attach(*args))))
+    return dict(name="side_attach", route="cuda",
+                source="src/repro_torch/kernels/csrc/side_attach.cu",
+                replaces="none: plain jnp in src/repro/core/search.py::_side_attach",
+                max_abs_err=0, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=b_ms, bound_by=b_by, closure_steps=steps)
 
 
 def bfs_oracle(graph, pairs, INF):
@@ -1994,6 +2085,9 @@ def main() -> int:
     log(f"launches on the hybrid path (build + query_batch): {launches['hybrid']}")
     time_lanes(idx_h, ops, us, vs, lanes, chunk)
     rows["hybrid_relay"] = check_hybrid_relay(core, ops, ref, idx_h)
+    rows["side_attach"] = check_side_attach(core, ops, ref, idx_h,
+                                            us[lanes["general"]],
+                                            vs[lanes["general"]])
 
     ops.reset_launches()
     idx_s, res_s = run_backend(core, ops, g, "segment", us, vs, n_landmarks, chunk)
@@ -2016,8 +2110,9 @@ def main() -> int:
     launches["sketch_oracle"] = sketch_oracle(ops, ref, idx_h, us[general],
                                               vs[general])
     launches["dense_oracle"] = dense_oracle(core, ops, ref, idx_h)
-    expect = {"hybrid": ("sketch_batch", "hybrid_relay"),
-              "segment": ("sketch_batch",), "csr": ("sketch_batch",),
+    expect = {"hybrid": ("sketch_batch", "hybrid_relay", "side_attach"),
+              "segment": ("sketch_batch", "side_attach"),
+              "csr": ("sketch_batch", "side_attach"),
               "sketch_oracle": ("minplus",),
               "dense_oracle": ("bitmap_expand_packed", "bitmap_expand")}
     for path, names in expect.items():
@@ -2061,12 +2156,13 @@ def main() -> int:
         core, ops, g, idx_h, us, vs, res_h, lanes["general"][:chunk], mesh)
     gc.collect()
     torch.cuda.empty_cache()
-    for path, names in (("spg_serve_step", ("sketch_batch", "hybrid_relay")),
-                        ("stream", ("sketch_batch", "hybrid_relay")),
-                        ("replicas", ("sketch_batch", "hybrid_relay")),
+    general_lane = ("sketch_batch", "hybrid_relay", "side_attach")
+    for path, names in (("spg_serve_step", general_lane),
+                        ("stream", general_lane),
+                        ("replicas", general_lane),
                         ("update", ("hybrid_relay",)),
                         ("sharded", ("sketch_batch",)),
-                        ("mesh_service", ("sketch_batch", "hybrid_relay")),
+                        ("mesh_service", general_lane),
                         ("scale_serve", ("sketch_batch",))):
         for name, count in launches[path].items():
             if (name in names) != (count > 0):
@@ -2130,6 +2226,7 @@ def main() -> int:
     for name, main_path in (("minplus", "sketch_oracle"),
                             ("sketch_batch", "hybrid"),
                             ("hybrid_relay", "hybrid"),
+                            ("side_attach", "hybrid"),
                             ("bitmap_expand_packed", "dense_oracle"),
                             ("bitmap_expand", "dense_oracle")):
         row = rows[name]

@@ -15,9 +15,12 @@ Full-width memory: the reference's ``(E, R)`` per-query temporaries become
 ``(B, E, R)`` when batched (17 GB in int32 on a 6.6 M-slot graph at
 B = 32, R = 20).  The port reduces over landmarks in a loop and keeps
 only ``(B, E)`` or ``(B, V)`` temporaries; min and OR are order-free, so
-the results are bit-identical.  The label-decrement and landmark-incident
-edge sets are static per index and are compacted once, in
-``make_search_context``; every stage then touches only those edges.
+the results are bit-identical.  The landmark-incident edge sets are static
+per index and are compacted once, in ``make_search_context``.  The recover
+search's side attach goes through the kernel seam (``ops.side_attach``):
+on the card a hand-written kernel that tests the label decrement from the
+label rows, on the CPU the plain loop over per-landmark edge lists that it
+builds at its first call.
 """
 from __future__ import annotations
 
@@ -27,21 +30,19 @@ import numpy as np
 import torch
 
 from .. import trace
-from .frontier import FrontierEngine, make_relay, segment_or
+from ..kernels import ops
+from .frontier import FrontierEngine, make_relay
 from .graph import INF, Graph
 from .packing import PackedLabels, pack_dist, pack_labelling, widen_dist
 
 
 class LandmarkEdges(NamedTuple):
-    """Static edge subsets the recover stage reads (all int64 index lists).
+    """Static edge subsets the Delta stage reads (all int64 index lists).
 
-    ``dec[r]`` = ``(eid, src, dst)`` of the G- edges whose label toward
-    landmark r decrements along the edge (``ld[dst, r] == ld[src, r] - 1``,
-    dst labelled).  ``at_src``/``at_dst`` = ``(eid, r, other, other_is_lm)``
-    of the edges whose src (resp. dst) is landmark r.  ``ll`` = ``(eid, i, j)``
-    of the edges between landmarks i (src) and j (dst)."""
+    ``at_src``/``at_dst`` = ``(eid, r, other, other_is_lm)`` of the edges
+    whose src (resp. dst) is landmark r.  ``ll`` = ``(eid, i, j)`` of the
+    edges between landmarks i (src) and j (dst)."""
 
-    dec: tuple
     at_src: tuple
     at_dst: tuple
     ll: tuple
@@ -51,7 +52,8 @@ class SearchContext(NamedTuple):
     """Per-graph constants shared by every query."""
 
     src: torch.Tensor           # (E,) int32
-    dst: torch.Tensor           # (E,) int32
+    dst: torch.Tensor           # (E,) int32, src-sorted: the CSR columns
+    indptr: torch.Tensor        # (V+1,) int32 CSR row offsets into dst
     gminus_e: torch.Tensor      # (E,) bool: both endpoints are non-landmarks
     is_landmark: torch.Tensor   # (V,) bool
     lid: torch.Tensor           # (V,) int32: vertex -> landmark index, -1 otherwise
@@ -61,15 +63,9 @@ class SearchContext(NamedTuple):
     edges: LandmarkEdges        # static edge subsets (see LandmarkEdges)
 
 
-def _landmark_edges(src, dst, gminus_e, is_landmark, lid, ld) -> LandmarkEdges:
+def _landmark_edges(src, dst, is_landmark, lid) -> LandmarkEdges:
     src64 = src.to(torch.int64)
     dst64 = dst.to(torch.int64)
-    dec = []
-    for r in range(ld.shape[1]):
-        ld_s = ld[src64, r]
-        ld_d = ld[dst64, r]
-        eid = torch.nonzero(gminus_e & (ld_d < INF) & (ld_d == ld_s - 1))[:, 0]
-        dec.append((eid, src64[eid], dst64[eid]))
 
     def at(end, other):
         eid = torch.nonzero(is_landmark[end])[:, 0]
@@ -78,7 +74,7 @@ def _landmark_edges(src, dst, gminus_e, is_landmark, lid, ld) -> LandmarkEdges:
 
     ll = torch.nonzero(is_landmark[src64] & is_landmark[dst64])[:, 0]
     return LandmarkEdges(
-        dec=tuple(dec), at_src=at(src64, dst64), at_dst=at(dst64, src64),
+        at_src=at(src64, dst64), at_dst=at(dst64, src64),
         ll=(ll, lid[src64[ll]].to(torch.int64), lid[dst64[ll]].to(torch.int64)))
 
 
@@ -110,9 +106,9 @@ def make_search_context(graph: Graph, scheme=None, *, backend: str = "segment",
     if engine is None:
         engine = make_relay(graph, backend=backend, edge_mask=gminus_e,
                             **engine_kw)
-    edges = _landmark_edges(src, dst, gminus_e, is_landmark, lid,
-                            widen_dist(label_dist))
-    return SearchContext(src=src, dst=dst, gminus_e=gminus_e,
+    edges = _landmark_edges(src, dst, is_landmark, lid)
+    return SearchContext(src=src, dst=dst, indptr=graph.indptr,
+                         gminus_e=gminus_e,
                          is_landmark=is_landmark, lid=lid,
                          label_dist=label_dist, meta_w=meta_w, engine=engine,
                          edges=edges)
@@ -245,60 +241,22 @@ def reverse_search(ctx: SearchContext, depth_u: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _side_attach(ctx: SearchContext, depth: torch.Tensor,
-                 side_land: torch.Tensor, n_vertices: int, max_chain: int):
+                 side_land: torch.Tensor, n_vertices: int, max_chain: int,
+                 out: torch.Tensor | None = None):
     """Component (i)/(ii): edges of landmark-free shortest t->r paths for
-    every sketch edge (r, t), one landmark at a time.
+    every sketch edge (r, t): the pointwise certificate (G- BFS prefix +
+    label suffix == sigma), the anchor-chain closure beyond the explored
+    ball along label-decrement edges of G- (at most ``max_chain`` steps,
+    one host sync each), then the interior edges and the final hops into
+    the landmark.
 
-    Returns ``(edge_mask (B, E), on (R, B, V))`` where ``on[r, b, x]``
-    certifies x on such a path for query b.  The anchor-chain closure runs
-    one shared loop over every (landmark, row) column: a column that has
-    converged is a fixed point of the step, and every column still moving
-    has taken the same number of steps, so the shared ``it < max_chain``
-    cap stops each one where its own loop would."""
-    ld = widen_dist(ctx.label_dist)                  # (V, R)
-    n_r = ld.shape[1]
-    b = depth.shape[0]
-    reached = depth < INF
-    edges = ctx.edges
-
-    # pointwise certificate: G- BFS prefix + label suffix == sigma
-    on = torch.empty((n_r, b, n_vertices), dtype=torch.bool, device=depth.device)
-    for r in range(n_r):
-        ld_r = ld[:, r][None, :]
-        sigma = side_land[:, r:r + 1]
-        on[r] = (ld_r < INF) & reached & (sigma < INF) & (depth + ld_r == sigma)
-
-    # anchor-chain closure beyond the explored ball (paper's Z-walk): extend
-    # along label-decrement edges in G- (a per-edge message, so it scatters)
-    it = 0
-    changed = True
-    while changed and it < max_chain:
-        moved = torch.zeros((), dtype=torch.bool, device=depth.device)
-        for r in range(n_r):
-            _, e_src, e_dst = edges.dec[r]
-            grown = segment_or(on[r][:, e_src], e_dst, n_vertices)
-            moved |= (grown & ~on[r]).any()
-            on[r] |= grown
-        changed = bool(moved)   # one host sync per closure step
-        it += 1
-        trace.count("search.closure_steps")
-        trace.count("search.host_syncs")
-
-    # interior edges: both endpoints certified, label distance decrements
-    e = ctx.src.shape[0]
-    interior = torch.zeros((b, e), dtype=torch.bool, device=depth.device)
-    for r, (eid, e_src, e_dst) in enumerate(edges.dec):
-        interior[:, eid] |= on[r][:, e_src] & on[r][:, e_dst]
-
-    # final hops into the landmark (both orientations of the same edge)
-    def hop(at):
-        eid, r_idx, other, _ = at
-        out = torch.zeros((b, e), dtype=torch.bool, device=depth.device)
-        near = ld[other, r_idx] == 1
-        out[:, eid] = on[r_idx, :, other].T & near[None, :]
-        return out
-
-    return interior | hop(edges.at_dst) | hop(edges.at_src), on
+    Returns ``(edge_mask (B, E), on)``, ``on`` as ``(V, ceil(B / 32), R)``
+    int32 words (``kernels.ref.unpack_on`` gives the ``(R, B, V)`` bools:
+    ``on[r, b, x]`` certifies x on such a path for query b); with ``out``
+    the edges are ORed into it.  ``ops.side_attach`` runs the kernel on the
+    card and the plain loop on the CPU."""
+    return ops.side_attach(depth, side_land, ctx.label_dist, ctx.indptr,
+                           ctx.src, ctx.dst, ctx.lid, max_chain, out)
 
 
 def _delta_edges(ctx: SearchContext, meta_edge: torch.Tensor) -> torch.Tensor:
@@ -367,12 +325,12 @@ def recover_search(ctx: SearchContext, q: Query, depth_u: torch.Tensor,
                    depth_v: torch.Tensor, n_vertices: int,
                    max_chain: int) -> torch.Tensor:
     with trace.span("search.attach", depth_u):
-        e_u, _ = _side_attach(ctx, depth_u, q.du_land, n_vertices, max_chain)
+        edges, _ = _side_attach(ctx, depth_u, q.du_land, n_vertices, max_chain)
     with trace.span("search.attach", depth_v):
-        e_v, _ = _side_attach(ctx, depth_v, q.dv_land, n_vertices, max_chain)
+        _side_attach(ctx, depth_v, q.dv_land, n_vertices, max_chain, out=edges)
     with trace.span("search.delta", depth_u):
-        delta = _delta_edges(ctx, q.meta_edge)
-    return e_u | e_v | delta
+        edges |= _delta_edges(ctx, q.meta_edge)
+    return edges
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,9 @@ PyTorch versions and the dispatch seam (``ops``).
                              (``csrc/bitmap_expand.cu``)
 * ``hybrid_relay``         — the hybrid relay in one pass: the tail's CSR
                              pull and the hub block (``csrc/hybrid_relay.cu``)
+* ``side_attach``          — one side of the recover search's attach:
+                             certificate, closure steps and edge pass over
+                             row-packed words (``csrc/side_attach.cu``)
 
 Nothing is compiled at import; ``_build`` runs ``nvcc`` on first launch.
 """
@@ -21,9 +24,11 @@ from .ops import (
     hybrid_relay,
     minplus,
     reset_launches,
+    side_attach,
     sketch_batch,
     sketch_d_top,
 )
 
 __all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
-           "minplus", "reset_launches", "sketch_batch", "sketch_d_top"]
+           "minplus", "reset_launches", "side_attach", "sketch_batch",
+           "sketch_d_top"]

@@ -15,7 +15,8 @@ build or bind the same library twice.
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where
 it launches its kernel and nowhere else (``kernels.ops.LAUNCHES``).  The
 fused relay's one count per call stands for its two launches (pack, then
-pull).
+pull); the side attach counts each of its kernels' launches (certificate,
+each closure step, edge pass).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("minplus", "sketch_batch", "bitmap_expand_packed", "bitmap_expand",
-           "hybrid_relay")
+           "hybrid_relay", "side_attach")
 
 LAUNCHES = {name: 0 for name in SOURCES}
 

@@ -4,7 +4,8 @@ The device of the tensors decides, and there is no ``use_pallas`` switch:
 
 * a CUDA tensor launches the hand-written kernel (``minplus.minplus_cuda``,
   ``sketch.sketch_batch_cuda``, ``frontier.bitmap_expand_packed_cuda``,
-  ``frontier.bitmap_expand_cuda``, ``frontier.hybrid_relay_cuda``) or
+  ``frontier.bitmap_expand_cuda``, ``frontier.hybrid_relay_cuda``,
+  ``attach.side_attach_cuda``) or
   raises: no ``try`` that falls back, no path that goes on running on the
   CPU;
 * a CPU tensor takes the kernel's plain PyTorch version (``ref``).
@@ -19,6 +20,7 @@ import torch
 
 from . import ref
 from ._build import LAUNCHES
+from .attach import check_side_attach_args, side_attach_cuda
 from .frontier import (
     bitmap_expand_cuda,
     bitmap_expand_packed_cuda,
@@ -31,7 +33,8 @@ from .minplus import check_minplus_args, minplus_cuda
 from .sketch import check_sketch_args, sketch_batch_cuda
 
 __all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
-           "minplus", "reset_launches", "sketch_batch", "sketch_d_top"]
+           "minplus", "reset_launches", "side_attach", "sketch_batch",
+           "sketch_d_top"]
 
 
 def reset_launches() -> None:
@@ -86,6 +89,25 @@ def hybrid_relay(f: torch.Tensor, tail_ptr: torch.Tensor,
         return hybrid_relay_cuda(f, tail_ptr, tail_col, hub_ids, adj_words)
     check_relay_args(f, tail_ptr, tail_col, hub_ids, adj_words)
     return ref.hybrid_relay_ref(f, tail_ptr, tail_col, hub_ids, adj_words)
+
+
+def side_attach(depth: torch.Tensor, side_land: torch.Tensor,
+                label_dist: torch.Tensor, indptr: torch.Tensor,
+                src: torch.Tensor, dst: torch.Tensor, lid: torch.Tensor,
+                max_chain: int, out: torch.Tensor | None = None):
+    """One side of the recover search's attach (``core.search._side_attach``):
+    depth ``(B, V)`` and sigma rows ``(B, R)`` over the packed labels, the
+    graph's CSR and ``lid`` -> ``(edge_mask (B, E) bool, on (V, ceil(B /
+    32), R) int32 words)``; with ``out`` the edges are ORed into it."""
+    tensors = (depth, side_land, label_dist, indptr, src, dst, lid) \
+        + (() if out is None else (out,))
+    if _on_cuda(*tensors):
+        return side_attach_cuda(depth, side_land, label_dist, indptr, src, dst,
+                                lid, max_chain, out)
+    check_side_attach_args(depth, side_land, label_dist, indptr, src, dst, lid,
+                           max_chain, out)
+    return ref.side_attach_ref(depth, side_land, label_dist, indptr, src, dst,
+                               lid, max_chain, out)
 
 
 def sketch_batch(lu: torch.Tensor, lv: torch.Tensor, meta_w: torch.Tensor,

@@ -3,10 +3,13 @@ kernel must reproduce bit for bit, and what a wrapper runs for a tensor on
 the CPU.  Counterpart of ``repro.kernels.ref``."""
 from __future__ import annotations
 
+import weakref
+
 import torch
 
+from .. import trace
 from ..core.graph import INF
-from ..core.packing import unpack_bits, widen_dist
+from ..core.packing import pack_bits, unpack_bits, widen_dist
 
 
 def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -104,3 +107,130 @@ def hybrid_relay_ref(f: torch.Tensor, tail_ptr: torch.Tensor,
     out[:, hubs] |= bitmap_expand_packed_ref(f[:, hubs], adj_words,
                                              hub_ids.shape[0])
     return out
+
+
+def _attach_lists(label_dist: torch.Tensor, src: torch.Tensor,
+                  dst: torch.Tensor, lid: torch.Tensor):
+    """The static edge lists the plain attach reads (int64 index lists):
+    ``dec[r]`` = ``(eid, src, dst)`` of the G- edges whose label toward
+    landmark r decrements along the edge (``ld[dst, r] == ld[src, r] - 1``,
+    dst labelled); ``at_src``/``at_dst`` = ``(eid, r, other)`` of the edges
+    whose src (resp. dst) is landmark r."""
+    ld = widen_dist(label_dist)
+    src64 = src.to(torch.int64)
+    dst64 = dst.to(torch.int64)
+    is_landmark = lid >= 0
+    gminus_e = (~is_landmark[src64]) & (~is_landmark[dst64])
+    dec = []
+    for r in range(ld.shape[1]):
+        ld_s = ld[src64, r]
+        ld_d = ld[dst64, r]
+        eid = torch.nonzero(gminus_e & (ld_d < INF) & (ld_d == ld_s - 1))[:, 0]
+        dec.append((eid, src64[eid], dst64[eid]))
+
+    def at(end, other):
+        eid = torch.nonzero(is_landmark[end])[:, 0]
+        return eid, lid[end[eid]].to(torch.int64), other[eid]
+
+    return tuple(dec), at(src64, dst64), at(dst64, src64)
+
+
+# label_dist's id -> (src, dst, lid, lists); an entry goes when its
+# label_dist does, so an id is never reused while its entry stands
+_ATTACH_LISTS: dict[int, tuple] = {}
+
+
+def attach_lists(label_dist: torch.Tensor, src: torch.Tensor,
+                 dst: torch.Tensor, lid: torch.Tensor):
+    """``_attach_lists``, built at the plain attach's first call on a label
+    table and kept while the table lives (rebuilt if the same table comes
+    with another graph).  Only the plain version reads them: the kernels
+    test the decrement from the label rows."""
+    key = id(label_dist)
+    hit = _ATTACH_LISTS.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit, (src, dst, lid))):
+        if hit is None:
+            weakref.finalize(label_dist, _ATTACH_LISTS.pop, key, None)
+        hit = _ATTACH_LISTS[key] = (src, dst, lid,
+                                    _attach_lists(label_dist, src, dst, lid))
+    return hit[3]
+
+
+def pack_on(on: torch.Tensor) -> torch.Tensor:
+    """(R, B, V) bool -> the kernels' (V, ceil(B / 32), R) int32 words: bit
+    ``b % 32`` of word ``[x, b // 32, r]`` is ``on[r, b, x]``."""
+    return pack_bits(on.permute(2, 0, 1)).transpose(1, 2).contiguous()
+
+
+def unpack_on(words: torch.Tensor, b: int) -> torch.Tensor:
+    """(V, W, R) int32 words -> (R, b, V) bool (inverse of ``pack_on``)."""
+    return unpack_bits(words.transpose(1, 2), b).permute(1, 2, 0)
+
+
+def side_attach_ref(depth: torch.Tensor, side_land: torch.Tensor,
+                    label_dist: torch.Tensor, indptr: torch.Tensor,
+                    src: torch.Tensor, dst: torch.Tensor, lid: torch.Tensor,
+                    max_chain: int, out: torch.Tensor | None = None):
+    """Component (i)/(ii) of the recover search for one side: edges of
+    landmark-free shortest t->r paths for every sketch edge (r, t), one
+    landmark at a time, over the label-decrement edge lists (built at the
+    first call, ``attach_lists``; ``indptr`` is the kernels' and unused
+    here).
+
+    Returns ``(edge_mask (B, E), on)`` with ``on`` packed as the kernels'
+    words (``pack_on``), where ``on[r, b, x]`` certifies x on such a path
+    for query b; with ``out`` the edges are ORed into it and it is
+    returned.  The anchor-chain closure runs one shared loop over every
+    (landmark, row) column: a column that has converged is a fixed point of
+    the step, and every column still moving has taken the same number of
+    steps, so the shared ``it < max_chain`` cap stops each one where its own
+    loop would."""
+    from ..core.frontier import segment_or   # core.frontier imports this module
+
+    dec, at_src, at_dst = attach_lists(label_dist, src, dst, lid)
+    ld = widen_dist(label_dist)                      # (V, R)
+    n_r = ld.shape[1]
+    b, n_vertices = depth.shape
+    reached = depth < INF
+
+    # pointwise certificate: G- BFS prefix + label suffix == sigma
+    on = torch.empty((n_r, b, n_vertices), dtype=torch.bool, device=depth.device)
+    for r in range(n_r):
+        ld_r = ld[:, r][None, :]
+        sigma = side_land[:, r:r + 1]
+        on[r] = (ld_r < INF) & reached & (sigma < INF) & (depth + ld_r == sigma)
+
+    # anchor-chain closure beyond the explored ball (paper's Z-walk): extend
+    # along label-decrement edges in G- (a per-edge message, so it scatters)
+    it = 0
+    changed = True
+    while changed and it < max_chain:
+        moved = torch.zeros((), dtype=torch.bool, device=depth.device)
+        for r in range(n_r):
+            _, e_src, e_dst = dec[r]
+            grown = segment_or(on[r][:, e_src], e_dst, n_vertices)
+            moved |= (grown & ~on[r]).any()
+            on[r] |= grown
+        changed = bool(moved)   # one host sync per closure step
+        it += 1
+        trace.count("search.closure_steps")
+        trace.count("search.host_syncs")
+
+    # interior edges: both endpoints certified, label distance decrements
+    e = src.shape[0]
+    interior = torch.zeros((b, e), dtype=torch.bool, device=depth.device)
+    for r, (eid, e_src, e_dst) in enumerate(dec):
+        interior[:, eid] |= on[r][:, e_src] & on[r][:, e_dst]
+
+    # final hops into the landmark (both orientations of the same edge)
+    def hop(at):
+        eid, r_idx, other = at
+        hops = torch.zeros((b, e), dtype=torch.bool, device=depth.device)
+        near = ld[other, r_idx] == 1
+        hops[:, eid] = on[r_idx, :, other].T & near[None, :]
+        return hops
+
+    edges = interior | hop(at_dst) | hop(at_src)
+    if out is not None:
+        edges = out.bitwise_or_(edges)
+    return edges, pack_on(on)

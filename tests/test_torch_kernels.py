@@ -201,9 +201,13 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
                      torch.zeros((1,), dtype=i32), torch.zeros((1, 1), dtype=i32))
     ops.sketch_batch(a, a, torch.zeros((3, 3), dtype=i32),
                      torch.zeros((3, 3), dtype=i32))
+    ops.side_attach(torch.zeros((2, 4), dtype=i32), torch.zeros((2, 1), dtype=i32),
+                    torch.zeros((4, 1), dtype=torch.uint8),
+                    torch.zeros((5,), dtype=i32), torch.zeros((0,), dtype=i32),
+                    torch.zeros((0,), dtype=i32), torch.full((4,), -1, dtype=i32), 3)
     assert LAUNCHES == before
     assert set(LAUNCHES) == {"minplus", "sketch_batch", "bitmap_expand_packed",
-                             "bitmap_expand", "hybrid_relay"}
+                             "bitmap_expand", "hybrid_relay", "side_attach"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

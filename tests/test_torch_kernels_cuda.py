@@ -7,7 +7,8 @@ neither JAX nor the JAX package, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Comparisons are exact, with zero tolerance: the min-plus product and the
-sketch are integer, the frontier expansion and the relay boolean.
+sketch are integer, the frontier expansion, the relay and the side attach
+boolean.
 """
 import functools
 
@@ -458,6 +459,7 @@ def test_stream_on_the_card_matches_query_batch(cuda_device):
         assert (r.dist, r.d_top) == (w.dist, w.d_top)
         assert np.array_equal(r.edge_ids, w.edge_ids)
     assert launched["sketch_batch"] > 0 and launched["hybrid_relay"] > 0
+    assert launched["side_attach"] > 0
     assert st.stats["cache_hits"] + st.stats["joined"] > 0
     st.close()
 
@@ -495,3 +497,36 @@ def test_apply_update_on_the_card_matches_cpu(cuda_device):
     assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(pc, pg))
     assert np.array_equal(lc, lg)
     assert np.array_equal(dc, dg) and np.array_equal(mc, mg)
+
+
+SIDE_ATTACH_CASES = [(maker, kw, b)
+                     for maker, kw in (("real", {"max_levels": 1}),
+                                       ("real", {"max_levels": 2, "dtype": torch.uint16}),
+                                       ("synthetic", {"seed": 1}),
+                                       ("synthetic", {"seed": 2, "near_sentinel": True}),
+                                       ("synthetic", {"seed": 3, "dtype": torch.uint16,
+                                                      "near_sentinel": True}))
+                     for b in (1, 31, 32, 33, 70, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_chain", [1, 64])
+@pytest.mark.parametrize("maker,kw,b", SIDE_ATTACH_CASES)
+def test_side_attach_kernel_matches_plain(cuda_device, maker, kw, b, max_chain):
+    """The side attach's kernels against the plain version on a small BA
+    graph's real depth tables and on arbitrary inputs (a row split into
+    closure segments, labels beside the sentinel), uint8 and uint16: the
+    edge mask, the word table and, with ``out``, the OR into it."""
+    from helpers import side_attach_cases as cases
+
+    a = {k: t.to(cuda_device) for k, t in getattr(cases, maker)(b=b, **kw).items()}
+    count = LAUNCHES["side_attach"]
+    got_e, got_on = ops.side_attach(**a, max_chain=max_chain)
+    launches = LAUNCHES["side_attach"] - count
+    want_e, want_on = ref.side_attach_ref(**a, max_chain=max_chain)
+    assert torch.equal(got_on, want_on) and torch.equal(got_e, want_e)
+    assert 3 <= launches <= 2 + max_chain
+    prev = torch.rand(got_e.shape, device=cuda_device) < 0.1
+    out = prev.clone()
+    ops.side_attach(**a, max_chain=max_chain, out=out)
+    assert torch.equal(out, prev | want_e)

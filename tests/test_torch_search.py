@@ -26,6 +26,7 @@ from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import search as ts  # noqa: E402
 from repro_torch.core.labelling import build_labelling as t_build  # noqa: E402
 from repro_torch.core.sketch import compute_sketch_batch as t_sketch  # noqa: E402
+from repro_torch.kernels.ref import unpack_on  # noqa: E402
 
 INF = jg.INF
 EDGES = np.concatenate([np.random.default_rng(4).integers(0, 40, size=(70, 2)),
@@ -96,7 +97,7 @@ def test_reverse_and_recover_stages(setup):
             depth_j, land_j)
         e_t, on_t = ts._side_attach(ctx_t, depth, land, v, MAX_CHAIN)
         _eq(e_j, e_t)
-        _eq(on_j, on_t.permute(1, 2, 0))
+        _eq(on_j, unpack_on(on_t, depth.shape[0]).permute(1, 2, 0))
 
     _eq(jax.vmap(lambda m: js._delta_edges(ctx_j, m, v))(qj.meta_edge),
         ts._delta_edges(ctx_t, qt.meta_edge))
