@@ -1,8 +1,9 @@
-"""A profiled slice of a run and its reduction: the device's busy time (the
-union of the intervals in which an operation ran on the device), the
-device operations that took most time, and the longest idle gaps named by
-what the host was doing (the harness span and the innermost host
-operation that covered the gap's middle).
+"""A profiled slice of a run and its reduction: the cards' busy time (per
+card, the union of the intervals in which an operation ran on it,
+averaged over the cell's cards), the device operations that took most
+time (summed over the cards), and the longest idle gaps, where no card of
+the cell ran, named by what the host was doing (the harness span and the
+innermost host operation that covered the gap's middle).
 
 The harness's spans are ``torch.profiler.record_function`` ranges named
 ``qbsbench.*``; they wrap calls into the program's layers in a traced run.
@@ -61,8 +62,28 @@ def _intervals(evts):
             [e.name for e in evts])
 
 
-def reduce_events(events, wall_s: float) -> dict:
-    """Reduce a profiler's events (``prof.events()``) of one slice."""
+def synchronize(cards) -> None:
+    """Wait for each of ``cards`` (CUDA devices; none on the CPU)."""
+    for d in cards:
+        torch.cuda.synchronize(d)
+
+
+def _union(iv) -> list[list[float]]:
+    segs: list[list[float]] = []
+    for a, b in sorted(iv):
+        if segs and a <= segs[-1][1]:
+            segs[-1][1] = max(segs[-1][1], b)
+        else:
+            segs.append([a, b])
+    return segs
+
+
+def reduce_events(events, wall_s: float, cards) -> dict:
+    """Reduce a profiler's events (``prof.events()``) of one slice.
+    ``cards`` are the device indices of the cell's cards: ``busy_s`` is the
+    mean over them of each card's busy time (``busy_s_by_card``).  An event
+    counts on the card of its ``device_index``; with one card, every event
+    counts on it."""
     cuda = torch.autograd.DeviceType.CUDA
     dev = [e for e in events if e.device_type == cuda and not _is_span(e)]
     host = [e for e in events if e.device_type != cuda]
@@ -75,19 +96,17 @@ def reduce_events(events, wall_s: float) -> dict:
     else:
         w0 = w1 = 0.0
     by_name: dict[str, float] = defaultdict(float)
-    iv: list[tuple[float, float]] = []
+    by_card: dict[int, list[tuple[float, float]]] = defaultdict(list)
+    cards = list(cards)
+    only = cards[0] if len(cards) == 1 else None
     for e in dev:
         a, b = max(e.time_range.start, w0), min(e.time_range.end, w1)
         by_name[short_name(e.name)] += (e.time_range.end - e.time_range.start) * 1e-6
         if b > a:
-            iv.append((a, b))
-    segs: list[list[float]] = []          # the union of the intervals
-    for a, b in sorted(iv):
-        if segs and a <= segs[-1][1]:
-            segs[-1][1] = max(segs[-1][1], b)
-        else:
-            segs.append([a, b])
-    busy = sum(b - a for a, b in segs)
+            card = getattr(e, "device_index", 0) if only is None else only
+            by_card[card].append((a, b))
+    busy = {c: sum(b - a for a, b in _union(by_card.get(c, ()))) for c in cards}
+    segs = _union([x for iv in by_card.values() for x in iv])   # some card ran
     gaps, prev = [], w0
     for a, b in segs:
         if a > prev:
@@ -106,7 +125,8 @@ def reduce_events(events, wall_s: float) -> dict:
         gap_by[label] += (b - a) * 1e-6
     top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:TOP]]
     return {
-        "busy_s": busy * 1e-6,
+        "busy_s": sum(busy.values()) / len(cards) * 1e-6,
+        "busy_s_by_card": {c: t * 1e-6 for c, t in busy.items()},
         "window_s": wall_s,
         "kernel_device_s": dict(by_name),
         "breakdown": {"device_ops": top(by_name), "idle_gaps": top(gap_by)},
@@ -114,9 +134,13 @@ def reduce_events(events, wall_s: float) -> dict:
 
 
 class ProfiledSlice:
-    """``with ProfiledSlice() as s: work()`` profiles the work (host and
-    device) and synchronises at its end; ``s.reduce()`` reads the trace
-    afterwards (``reduce_events``), outside the measured work."""
+    """``with ProfiledSlice(cards) as s: work()`` profiles the work (host
+    and device) and waits at its end for the cell's CUDA ``cards``;
+    ``s.reduce()`` reads the trace afterwards (``reduce_events``, over
+    those cards), outside the measured work."""
+
+    def __init__(self, cards):
+        self.cards = list(cards)
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -131,8 +155,7 @@ class ProfiledSlice:
         return self
 
     def __exit__(self, *exc):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        synchronize(self.cards)
         wall = time.perf_counter() - self._t0
         self._span.__exit__(*exc)
         self._prof.__exit__(*exc)
@@ -140,4 +163,6 @@ class ProfiledSlice:
         return False
 
     def reduce(self) -> dict:
-        return reduce_events(self._prof.events(), self._wall)
+        # on the CPU, one notional card that no CUDA event names
+        return reduce_events(self._prof.events(), self._wall,
+                             [d.index for d in self.cards] or [0])

@@ -15,7 +15,7 @@ import time
 
 import numpy as np
 
-from qbsbench.harness import Window, synchronize
+from qbsbench.harness import Window
 from qbsbench.trafficgen import WARMUP_STREAM, HostGraph, batch_pairs
 
 
@@ -33,7 +33,7 @@ def run(system, traffic: dict, seed: int, seconds: float, rec) -> Window:
     hg = HostGraph(system.edges, system.n_vertices)
     svc = index.make_service(**traffic.get("service", {}))
     svc.query_batch(*_warmup_pairs(system, traffic, hg, seed, svc.chunk))
-    synchronize()
+    rec.synchronize()
 
     rec.reset_counters()
     lanes0 = list(svc.lane_served)

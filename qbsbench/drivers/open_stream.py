@@ -24,7 +24,7 @@ import numpy as np
 
 from repro_torch.serving import AdmissionPolicy, QoSClass, QueryFuture
 
-from qbsbench.harness import Window, synchronize
+from qbsbench.harness import Window
 from qbsbench.graphgen import rng_for
 from qbsbench.trafficgen import WARMUP_STREAM, HostGraph, stream_schedule
 
@@ -45,7 +45,7 @@ def make_stream(index, traffic: dict):
                              async_depth=int(traffic["async_depth"]))
 
 
-def warm_up(system, traffic: dict, seed: int) -> None:
+def warm_up(system, traffic: dict, seed: int, rec) -> None:
     index = system.index
     a = traffic["admission"]
     rng = rng_for(seed, WARMUP_STREAM)
@@ -61,7 +61,7 @@ def warm_up(system, traffic: dict, seed: int) -> None:
             vs = np.concatenate([vs, [lm[1], x]]).astype(np.int32)
         svc.query_batch(us, vs)
         w *= 2
-    synchronize()
+    rec.synchronize()
 
 
 def quantile_ms(x: np.ndarray, q: float) -> float:
@@ -116,7 +116,7 @@ def run(system, traffic: dict, seed: int, seconds: float, rec) -> Window:
     index = system.index
     hg = HostGraph(system.edges, system.n_vertices)
     sched = stream_schedule(traffic, hg, seed, seconds)
-    warm_up(system, traffic, seed)
+    warm_up(system, traffic, seed, rec)
     stream = make_stream(index, traffic)
     classes = [q["name"] for q in traffic["qos"]]
 

@@ -16,6 +16,11 @@ order follows the degree.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+from pathlib import Path
+
 import numpy as np
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
@@ -177,3 +182,23 @@ def generate(spec: dict) -> tuple[np.ndarray, int]:
     n = int(spec["n_vertices"])
     return gen(n, int(spec["n_edges"]), int(spec["max_degree"]),
                int(spec["min_degree"]), int(spec["seed"])), n
+
+
+def cached(spec: dict, cache_dir: Path) -> tuple[np.ndarray, int]:
+    """``generate(spec)``, kept in ``cache_dir`` as ``<key>.npy``, the key
+    the SHA-256 of the graph block and of this module's source: a changed
+    block or generator misses, and a miss generates the graph and writes
+    the file (under a partial name first, so a run that dies mid-write
+    leaves no file that a later run would read)."""
+    h = hashlib.sha256(json.dumps(spec, sort_keys=True).encode())
+    h.update(Path(__file__).read_bytes())
+    path = Path(cache_dir) / f"{h.hexdigest()}.npy"
+    if path.exists():
+        return np.load(path), int(spec["n_vertices"])
+    edges, n = generate(spec)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    part = path.with_name(path.name + ".part")
+    with open(part, "wb") as f:
+        np.save(f, edges)
+    os.replace(part, path)
+    return edges, n

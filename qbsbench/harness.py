@@ -13,9 +13,22 @@ object with ``edges``, ``n_vertices`` and ``release()``.  A
 driver module has ``run(system, traffic, seed, seconds, rec)``, which warms
 up, calls ``rec.setup_done()`` just before the first timed request,
 measures and returns a ``Window``.
+
+A cell's cards: ``rec.devices`` lists one device per chip the cell asks
+for, ``cuda:0`` to ``cuda:<chips - 1>`` in a benchmark run and
+``[device] * chips`` on the CPU; a system that spans several builds its
+mesh from them.  ``rec.synchronize()``, which systems and drivers call
+where they time, and the profiled slice wait for every one of its CUDA
+cards (``rec.cards``; none on the CPU).  The harness resets the memory
+peak of each before ``setup``, reports the highest card's as ``peak_gib``
+and ``memory_peak_bytes``, and empties each card's cache after
+``release()``.  A traced run's ``busy_s`` is the mean of the cards' busy
+times.  ``with_cell`` adds a cell that ``BENCHMARK.json`` does not hold
+(``run.py --shards``, the tests).
 """
 from __future__ import annotations
 
+import copy
 import gc
 import importlib.util
 import json
@@ -27,6 +40,7 @@ from pathlib import Path
 
 import torch
 
+from . import devtrace
 from . import judge as judging
 from .devtrace import SPAN, ProfiledSlice
 
@@ -61,6 +75,17 @@ def cell_of(bench: dict, workload: str) -> dict:
     raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
 
 
+def with_cell(bench: dict, cell: dict, like: str) -> dict:
+    """A copy of ``bench`` that holds ``cell`` too, listed by every metric
+    that lists the cell ``like``."""
+    bench = copy.deepcopy(bench)
+    bench["workloads"].append(cell)
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like in m.get("workloads", ()):
+            m["workloads"].append(cell["name"])
+    return bench
+
+
 def applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
@@ -89,9 +114,11 @@ class Recorder:
     of a traced run (wrappers it installs and takes out again, spans,
     counters) and the raw readings the per-layer readers read."""
 
-    def __init__(self, trace: bool, t_start: float):
+    def __init__(self, trace: bool, t_start: float, devices):
         self.trace = trace
         self.t_start = t_start
+        self.devices = [torch.device(d) for d in devices]
+        self.cards = [d for d in self.devices if d.type == "cuda"]
         self.setup_s: float | None = None
         self.raw: dict = {}
         self.in_slice = False
@@ -117,6 +144,10 @@ class Recorder:
         for k in ("general_chunks", "general_chunk_s", "relay_bytes", "relay_calls"):
             self.raw.pop(k, None)
 
+    def synchronize(self) -> None:
+        """Wait for every card of the cell."""
+        devtrace.synchronize(self.cards)
+
     def setup_done(self) -> None:
         self.setup_s = time.perf_counter() - self.t_start
 
@@ -125,7 +156,7 @@ class Recorder:
         """Profile the body (a traced run's slice); ``finish`` reads it."""
         self.in_slice = True
         try:
-            with ProfiledSlice() as self._slice:
+            with ProfiledSlice(self.cards) as self._slice:
                 yield
         finally:
             self.in_slice = False
@@ -138,17 +169,13 @@ class Recorder:
             self._slice = None
 
 
-def synchronize() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
 def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
              device: str, t_start: float, *, config: dict | None = None,
              log=None) -> dict:
     """Run one cell once and return the result object.  ``config``
     replaces the cell's configuration file (the tests' small sizes);
-    ``device`` is ``"cuda"`` in a benchmark run."""
+    ``device`` is ``"cuda"`` in a benchmark run, and the cell's ``chips``
+    set its cards (``rec.devices``)."""
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     cell = cell_of(bench, workload)
     cfg = config or load_json("configs", cell["config"])
@@ -156,27 +183,50 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     system_mod = load_module("systems", cfg["system"])
     driver_mod = load_module("drivers", traffic["driver"])
     on_cuda = torch.device(device).type == "cuda"
-    rec = Recorder(trace, t_start)
+    chips = int(cell["chips"])
+    rec = Recorder(trace, t_start, [torch.device("cuda", i) for i in range(chips)]
+                   if on_cuda else [device] * chips)
+    if on_cuda:
+        torch.cuda.init()      # the peaks of a card named by index need it
+    for d in rec.cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    by_card = lambda peaks: ", ".join(f"{d} {p} B" for d, p in zip(rec.cards, peaks))
     try:
         system = system_mod.setup(cfg, seed, device, rec)
         win = driver_mod.run(system, traffic, seed, seconds, rec)
+    except torch.cuda.OutOfMemoryError:
+        log("out of memory; peak by card: "
+            + by_card([torch.cuda.max_memory_allocated(d) for d in rec.cards]))
+        raise
     finally:
         rec.finish()
-    synchronize()
-    peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+    rec.synchronize()
+    peaks = [torch.cuda.max_memory_allocated(d) for d in rec.cards]
+    peak = max(peaks, default=0)
     edges, n = system.edges, system.n_vertices
     e2e = dict(win.metrics, setup_s=rec.setup_s, peak_gib=peak / (1 << 30))
     system.release()
     del system
     gc.collect()
-    if on_cuda:
-        torch.cuda.empty_cache()
+    for d in rec.cards:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     counts = judging.judge(edges, n, win.answers, device)
     ok, checks = judging.verdict(counts)
     for line in win.notes:
         log(line)
+    log("set-up: " + ", ".join(f"{k} {rec.raw[k]:.3f}" for k in
+                                ("graph_s", "from_edges_s", "labelling_s", "build_s")
+                                if k in rec.raw)
+        + f"; setup_s {rec.setup_s:.3f}")
+    if rec.cards:
+        log("peak by card: " + by_card(peaks))      # before the reference ran
+    if "busy_s_by_card" in rec.raw:
+        log("busy by card: " + ", ".join(
+            f"{c} {100 * b / rec.raw['window_s']:.2f}%"
+            for c, b in rec.raw["busy_s_by_card"].items()))
     log(f"reference: {counts['checked']} answers compared in "
         f"{time.perf_counter() - t0:.3f} s")
 
@@ -194,7 +244,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
                    if e2e.get(k) is not None}
     dev = {"platform": "gpu" if on_cuda else device,
            "kind": torch.cuda.get_device_name() if on_cuda else device,
-           "count": int(cell["chips"]) if on_cuda else 1,
+           "count": chips if on_cuda else 1,
            "memory_peak_bytes": int(peak)}
     out = {"correct": ok, "attempted": win.attempted, "failed": counts["missing"],
            "metrics": metrics, "device": dev}

@@ -46,10 +46,10 @@ def main() -> int:
     traffic = harness.load_json("traffic", args.traffic)
     driver = harness.load_module("drivers", traffic["driver"])
     seeds = [int(s) for s in args.seeds.split(",")]
-    rec = harness.Recorder(False, T_START)
+    rec = harness.Recorder(False, T_START, ["cuda:0"])
     system = harness.load_module("systems", cfg["system"]).setup(cfg, seeds[0], "cuda", rec)
     hg = HostGraph(system.edges, system.n_vertices)
-    driver.warm_up(system, traffic, seeds[0])
+    driver.warm_up(system, traffic, seeds[0], rec)
     classes = [q["name"] for q in traffic["qos"]]
     runs = [(float(r), s) for r in args.rates.split(",") for s in seeds
             for _ in range(args.reps)]

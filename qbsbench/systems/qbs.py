@@ -22,7 +22,6 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.core import QbSIndex, from_edges
 from repro_torch.core import qbs as core_qbs
@@ -31,16 +30,19 @@ from repro_torch.serving import service as serving_service
 from repro_torch.serving import stream as serving_stream
 
 from qbsbench import graphgen
-from qbsbench.harness import synchronize
 from qbsbench.peaks import hybrid_relay_call_bytes
 
 
 class QbsSystem:
-    def __init__(self, edges: np.ndarray, n_vertices: int, index: QbSIndex):
+    """What the drivers and the harness read of a deployment: its edge
+    list, the index and its landmarks (``landmarks`` in any order)."""
+
+    def __init__(self, edges: np.ndarray, n_vertices: int, index, landmarks):
         self.edges = edges
         self.n_vertices = n_vertices
         self.index = index
-        self.is_landmark = index.scheme.is_landmark.cpu().numpy()
+        self.is_landmark = np.zeros((n_vertices,), bool)
+        self.is_landmark[np.asarray(landmarks)] = True
         self.landmarks = np.flatnonzero(self.is_landmark).astype(np.int32)
 
     @staticmethod
@@ -51,20 +53,21 @@ class QbsSystem:
         self.index = None
 
 
-def _instrument_build(rec) -> None:
+def _instrument_build(rec, owner, name: str) -> None:
+    """Time the labelling, ``owner.name``, into ``labelling_s``."""
     def make(orig):
-        def build_labelling(*a, **kw):
+        def labelling(*a, **kw):
             t0 = time.perf_counter()
             with rec.span("build_labelling"):
                 out = orig(*a, **kw)
-                synchronize()
+                rec.synchronize()
             rec.raw["labelling_s"] = time.perf_counter() - t0
             return out
-        return build_labelling
-    rec.patch(core_qbs, "build_labelling", make)
+        return labelling
+    rec.patch(owner, name, make)
 
 
-def _instrument_serving(rec) -> None:
+def _instrument_serving(rec, index_cls) -> None:
     raw = rec.raw
 
     def general(orig):
@@ -75,7 +78,7 @@ def _instrument_serving(rec) -> None:
                     return orig(index, us, vs)
                 t0 = time.perf_counter()
                 out = orig(index, us, vs)
-                synchronize()
+                rec.synchronize()
                 raw.setdefault("general_chunk_s", []).append(time.perf_counter() - t0)
                 return out
         return serve_step
@@ -97,37 +100,45 @@ def _instrument_serving(rec) -> None:
                 return orig(*a)
         return hybrid_relay
 
-    rec.patch(QbSIndex, "serve_step", general)
-    rec.patch(QbSIndex, "landmark_pair_step", spanned("landmark_pair_step"))
-    rec.patch(QbSIndex, "landmark_onesided_step", spanned("landmark_onesided_step"))
+    rec.patch(index_cls, "serve_step", general)
+    rec.patch(index_cls, "landmark_pair_step", spanned("landmark_pair_step"))
+    rec.patch(index_cls, "landmark_onesided_step", spanned("landmark_onesided_step"))
     rec.patch(serving_service, "edge_ids_of", spanned("drain"))
     rec.patch(serving_stream, "edge_ids_of", spanned("drain"))
     rec.patch(ops, "hybrid_relay", relay)
 
 
-def setup(config: dict, seed: int, device, rec) -> QbsSystem:
-    ix = config["index"]
-    edges, n = graphgen.generate(config["graph"])
-    if torch.device(device).type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    g = from_edges(edges, n, device=device)
-    synchronize()
-    rec.raw["from_edges_s"] = time.perf_counter() - t0
-
-    def build():
+def build_index(rec, build, labelling: tuple, index_cls):
+    """``build()``, synchronised, into ``build_s``; a traced run builds
+    twice, frees the first index and times the second, and instruments
+    the labelling (``labelling``: the owner and name it is looked up by)
+    and the serving calls of ``index_cls``."""
+    def timed():
         t0 = time.perf_counter()
         with rec.span("build"):
-            index = QbSIndex.build(g, n_landmarks=int(ix["n_landmarks"]),
-                                   backend=ix["backend"], chunk=int(ix["chunk"]),
-                                   device=device)
-            synchronize()
+            index = build()
+            rec.synchronize()
         return index, time.perf_counter() - t0
 
     if rec.trace:
-        build()             # warm-up: loads every kernel, fills the allocator
-        _instrument_build(rec)
-    index, rec.raw["build_s"] = build()
+        timed()             # warm-up: loads every kernel, fills the allocator
+        _instrument_build(rec, *labelling)
+    index, rec.raw["build_s"] = timed()
     if rec.trace:
-        _instrument_serving(rec)
-    return QbsSystem(edges, n, index)
+        _instrument_serving(rec, index_cls)
+    return index
+
+
+def setup(config: dict, seed: int, device, rec) -> QbsSystem:
+    ix = config["index"]
+    edges, n = graphgen.generate(config["graph"])
+    t0 = time.perf_counter()
+    g = from_edges(edges, n, device=device)
+    rec.synchronize()
+    rec.raw["from_edges_s"] = time.perf_counter() - t0
+    index = build_index(
+        rec, lambda: QbSIndex.build(g, n_landmarks=int(ix["n_landmarks"]),
+                                    backend=ix["backend"], chunk=int(ix["chunk"]),
+                                    device=device),
+        (core_qbs, "build_labelling"), QbSIndex)
+    return QbsSystem(edges, n, index, index.scheme.landmarks.cpu().numpy())

@@ -3,9 +3,10 @@ of the harness (no look for a card) with the timed path broken underneath
 and must come out not correct, once for each fault a serving cell can
 have (an answer altered where it is produced; half of a chunk left out);
 sound runs come out correct; and the control (the reference answering on
-G-, without the paths through landmarks) comes out not correct.  Faults
-that only training or several chips can have (a state returned
-unchanged, a missing exchange) do not apply to these cells."""
+G-, without the paths through landmarks) comes out not correct.  A state
+returned unchanged is training's fault and applies to no cell; the
+several-chip fault, a missing exchange, is planted in the sharded
+deployment by ``test_qbsbench_sharded.py``."""
 import numpy as np
 import pytest
 import torch

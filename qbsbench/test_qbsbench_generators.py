@@ -2,7 +2,9 @@
 (same edges for the same seed, simple and connected, the stated vertex
 and edge counts and the fitted degree sequence exactly) and the three
 traffic mixes (same pairs for the same seed; the stream's bulk share,
-repeat share and burst lengths match their knobs within sampling error)."""
+repeat share and burst lengths match their knobs within sampling error);
+the graph cache returns what the generator drew, and a changed graph
+block misses it."""
 import json
 from pathlib import Path
 
@@ -11,6 +13,7 @@ import pytest
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components, shortest_path
 
+from qbsbench import graphgen
 from qbsbench.graphgen import chung_lu, chung_lu_weights, degree_sequence, generate, scaled
 from qbsbench.trafficgen import HostGraph, batch_pairs, stream_schedule
 
@@ -142,3 +145,19 @@ def test_stream_matches_its_knobs(host_graph):
     rank[np.argsort(-host_graph.deg, kind="stable")] = np.arange(host_graph.n)
     fresh = ~a["repeat"]
     assert np.mean(rank[a["u"][fresh]] < host_graph.n / 8) > 0.45
+
+
+def test_graph_cache_hits_and_misses(tmp_path, monkeypatch):
+    spec = scaled(CONFIGS["youtube-r20"]["graph"], 3000)
+    edges, n = graphgen.cached(spec, tmp_path)
+    assert n == 3000 and np.array_equal(edges, generate(spec)[0])
+    assert [p.suffix for p in tmp_path.iterdir()] == [".npy"]
+
+    def drawn(_):
+        raise AssertionError("a hit draws nothing")
+    with monkeypatch.context() as m:
+        m.setattr(graphgen, "generate", drawn)
+        hit, n_hit = graphgen.cached(dict(spec), tmp_path)
+    assert n_hit == n and hit.dtype == edges.dtype and np.array_equal(hit, edges)
+    other, _ = graphgen.cached(dict(spec, seed=spec["seed"] + 1), tmp_path)
+    assert len(list(tmp_path.iterdir())) == 2 and not np.array_equal(other, edges)

@@ -129,7 +129,7 @@ def test_idle_gap_named_by_the_program_span():
               _ev("void at::native::index_elementwise_kernel<128, 4>(int)", 10, 40, True),
               _ev("void at::native::elementwise_kernel<4>(int)", 60, 80, True),
               _ev("Memcpy DtoH (Device -> Pageable)", 86, 100, True)]
-    r = reduce_events(events, 100e-6)
+    r = reduce_events(events, 100e-6, [0])
     assert r["busy_s"] == pytest.approx(64e-6)
     ops = [n for n, _ in r["breakdown"]["device_ops"]]
     assert ops == ["index_elementwise_kernel", "elementwise_kernel", "Memcpy DtoH"]
