@@ -74,12 +74,17 @@ Phases (each raises on failure; nothing is caught):
    each counted the same way: ``sharded`` (``distributed_build_labelling`` in the bool, bitmap
    and pull exchanges, each equal to the hybrid index's scheme, not
    counted; then ``ShardedIndex.build`` and ``query_batch`` on every lane,
-   equal to the hybrid answers, ``sketch_batch`` only; ``max_levels`` and
-   ``max_chain`` sized from the landmarks' measured eccentricity), then
+   equal to the hybrid answers, ``sketch_batch`` and ``sharded_attach``
+   only; ``max_levels`` and ``max_chain`` sized from the landmarks'
+   measured eccentricity), then
    ``mesh_service`` (``ServingService(idx_h, mesh=...)``: general chunks
    split over the shards, ``sketch_batch``, ``hybrid_relay`` and
    ``side_attach``) and
-   ``scale_serve`` (one chunk of general pairs, ``sketch_batch`` only);
+   ``scale_serve`` (one chunk of general pairs, ``sketch_batch`` and
+   ``sharded_attach`` only); then the sharded attach at the orkut cell's
+   shard (``check_sharded_attach``: one shard of 774,656 vertices and
+   about 58.6 M slots, 2B = 64, R = 20), against its plain version bit for
+   bit and timed beside it and its bytes bound;
 6. 8 sampled answers against a scipy BFS oracle; the baselines on the
    card: Bi-BFS on 32 general pairs and the two-BFS oracle on 2 pairs of
    the 1.1 M-vertex graph must give the QbS answers, and PPL (with and
@@ -642,6 +647,100 @@ def check_side_attach(core, ops, ref, idx_h, us, vs):
                 source="src/repro_torch/kernels/csrc/side_attach.cu",
                 replaces="none: plain jnp in src/repro/core/search.py::_side_attach",
                 max_abs_err=0, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=b_ms, bound_by=b_by, closure_steps=steps)
+
+
+def sharded_attach_bytes(b, v_loc, r, e, v):
+    """Bytes the sharded attach must move on one shard: each input read
+    once (both sides' depths, the sigma rows, the label block, the slots'
+    two ends, the in-edge CSR, lid) and the (B, E) bools written once.  The
+    source labels (E, R) are read at active slots only, and the word
+    tables and their all-gathers are the kernels' own state: neither is
+    counted."""
+    return (4 * 2 * b * (v_loc + 1) + 4 * 2 * b * r + 4 * v_loc * r + 8 * e
+            + 4 * (v_loc + 1) + 4 * v + b * e)
+
+
+def check_sharded_attach(core, ops, ref, v_loc=774_656, n_slots=58_600_000,
+                         b=32, r=20, depth=11, seed=0):
+    """The sharded attach's kernels at the orkut cell's shard: one shard of
+    ``v_loc`` vertices and about ``n_slots`` edge slots (a Chung-Lu draw on
+    the card, expected degrees falling as (i + 10)^-0.6, top about 26 K;
+    the list crosses to the host for ``from_edges``),
+    R = 20, chunk ``b`` (2B = 64 rows), ``max_levels`` = ``max_chain`` =
+    ``depth``; the E1 inputs of one general chunk of random pairs, captured
+    at the seam; the kernels == the plain loop bit for bit, with
+    ``max_chain`` 1 and ``depth``; then kernel and plain times beside the
+    bytes bound and the time per launch.  Returns the JSON row."""
+    from repro_torch.core.sharded import ShardedIndex
+    from repro_torch.kernels import attach_sharded as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.arange(v_loc, device=dev, dtype=torch.float64) + 10) ** -0.6
+    cdf = torch.cumsum(w / w.sum(), 0)
+    m = n_slots * 103 // 200           # loops and repeats drop about 3%
+    ends = torch.searchsorted(cdf, torch.rand((2, m), device=dev, generator=gen,
+                                              dtype=torch.float64))
+    edges = torch.clamp(ends, max=v_loc - 1).T.cpu().numpy()
+    del w, cdf, ends
+    t0 = time.perf_counter()
+    g = core.from_edges(edges, v_loc, device=dev)
+    mesh = core.Mesh([dev])
+    sh = ShardedIndex.build(g, n_landmarks=r, mesh=mesh, chunk=b,
+                            max_levels=depth, max_chain=depth)
+    sync_all()
+    log(f"[sharded_attach] one shard: {v_loc} vertices, {g.n_edges} slots "
+        f"(top degree {int(g.indptr.diff().max())}), R = {r}: graph and "
+        f"index {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    non = np.flatnonzero(~sh._is_landmark_np)
+    us = torch.as_tensor(rng.choice(non, b), dtype=torch.int32, device=dev)
+    vs = torch.as_tensor(rng.choice(non, b), dtype=torch.int32, device=dev)
+    seen = []
+    seam = ops.sharded_attach
+
+    def keep(*a):
+        seen.append(a)
+        return seam(*a)
+    ops.sharded_attach = keep
+    try:
+        sh.serve_step(us, vs)
+    finally:
+        ops.sharded_attach = seam
+    mesh_, halo, plan, inp, _ = seen[0]
+    for mc in (1, depth):
+        before = ops.LAUNCHES["sharded_attach"]
+        got = ops.sharded_attach(mesh_, halo, plan, inp, mc)
+        launches = ops.LAUNCHES["sharded_attach"] - before
+        want = ref.sharded_attach_ref(mesh_, halo, inp, mc)
+        sync_all()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"sharded_attach (max_chain={mc}): kernel and "
+                                 f"plain disagree")
+        log(f"sharded_attach B={b} max_chain={mc}: kernel == plain; {launches} "
+            f"launches, {int(got[0].sum())} edge marks")
+    steps = launches - 2
+    kernel = lambda: ops.sharded_attach(mesh_, halo, plan, inp, depth)  # noqa: E731
+    plain = lambda: ref.sharded_attach_ref(mesh_, halo, inp, depth)  # noqa: E731
+    k_wall = time_ms(kernel, reps=5, calls=3, warmup=1)
+    p_wall = time_ms(plain, reps=2, calls=1, warmup=1)
+    split = kernel_split(kernel, calls=3)
+    k_dev = sum(us for _, us in split) / 1e3    # every device op of a call
+    n_bytes = sharded_attach_bytes(b, v_loc, r, g.n_edges, v_loc)
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    log(f"sharded_attach B={b} ({v_loc} vertices, {g.n_edges} slots, R = {r}, "
+        f"{steps} closure step(s)): kernel {k_wall:.3f} ms/call ({k_dev:.3f} ms "
+        f"device), plain {p_wall:.3f} ms/call; bound {b_ms:.3f} ms by {b_by} "
+        f"({n_bytes} bytes); per launch " + ", ".join(
+            f"{k} {x:.2f} us" for k, x in split))
+    del sh, g, seen, mesh_, halo, plan, inp, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(name="sharded_attach", route="cuda",
+                source="src/repro_torch/kernels/csrc/sharded_attach.cu",
+                replaces="none: plain jnp in src/repro/core/scale_serve.py",
+                max_abs_err=0, ms=k_dev, wall_ms=k_wall, plain_ms=p_wall,
                 bound_ms=b_ms, bound_by=b_by, closure_steps=steps)
 
 
@@ -2156,14 +2255,15 @@ def main() -> int:
         core, ops, g, idx_h, us, vs, res_h, lanes["general"][:chunk], mesh)
     gc.collect()
     torch.cuda.empty_cache()
+    rows["sharded_attach"] = check_sharded_attach(core, ops, ref)
     general_lane = ("sketch_batch", "hybrid_relay", "side_attach")
     for path, names in (("spg_serve_step", general_lane),
                         ("stream", general_lane),
                         ("replicas", general_lane),
                         ("update", ("hybrid_relay",)),
-                        ("sharded", ("sketch_batch",)),
+                        ("sharded", ("sketch_batch", "sharded_attach")),
                         ("mesh_service", general_lane),
-                        ("scale_serve", ("sketch_batch",))):
+                        ("scale_serve", ("sketch_batch", "sharded_attach"))):
         for name, count in launches[path].items():
             if (name in names) != (count > 0):
                 raise AssertionError(f"kernel {name} was launched {count} times "
@@ -2227,6 +2327,7 @@ def main() -> int:
                             ("sketch_batch", "hybrid"),
                             ("hybrid_relay", "hybrid"),
                             ("side_attach", "hybrid"),
+                            ("sharded_attach", "sharded"),
                             ("bitmap_expand_packed", "dense_oracle"),
                             ("bitmap_expand", "dense_oracle")):
         row = rows[name]

@@ -149,7 +149,8 @@ class Halo:
     """The bit-packed frontier exchange over one edge set: each shard packs
     its ``(rows, v_loc)`` bool block into words, the words are all-gathered,
     and each shard reads the bits of its edges' global sources ``src_sh``
-    straight from them (the bool frontier is never gathered).  Under a
+    straight from them (the bool frontier is never gathered).  ``words``
+    all-gathers tables that are words already (the sharded attach's).  Under a
     profiler each call is a ``sharded.halo`` span over the mesh's devices
     and adds the bytes the all-gather moves between shards, ``S (S - 1)``
     blocks of ``rows * wloc`` int32 words, to ``sharded.halo_bytes``."""
@@ -179,6 +180,18 @@ class Halo:
                     word, bit = word[edges[s]], bit[edges[s]]
                 out.append(read_bits(flat, word, bit))
             return out
+
+    def words(self, *blocks):
+        """Per-shard int32 word tables, each list's tensors of one shape ->
+        for each list, every shard's ``(S, ...)`` stack of all shards' tables:
+        raw words all-gathered, with no ``pack_bits`` and no bit reads.  One
+        ``sharded.halo`` span, adding ``S (S - 1)`` times each table's bytes
+        to ``sharded.halo_bytes``."""
+        n = self.mesh.n_shards
+        with trace.span("sharded.halo", self.mesh.devices):
+            trace.count("sharded.halo_bytes", n * (n - 1) * sum(
+                x[0].numel() * x[0].element_size() for x in blocks))
+            return tuple(self.mesh.all_gather(x) for x in blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.attach_sharded import make_attach_plan
 from .distributed import partition_graph
 from .graph import INF, Graph
 from .labelling import LabellingScheme
@@ -39,7 +40,8 @@ def make_scale_serve_step(mesh: Mesh, *, n_vertices: int, v_loc: int,
     """``step(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
     meta_w, meta_dist, us, vs)`` -> ``(per-shard (B, E_loc) edge masks, dist
     (B,))``: the masks mark each shard's dst-owned SPG edges, not
-    symmetrized; ``dist`` lies on ``mesh.devices[0]``."""
+    symmetrized; ``dist`` lies on ``mesh.devices[0]``.  There is no index,
+    so each call makes the attach's plan from the blocks it is handed."""
 
     def step(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
              meta_w, meta_dist, us, vs):
@@ -55,7 +57,9 @@ def make_scale_serve_step(mesh: Mesh, *, n_vertices: int, v_loc: int,
             meta_w=meta_w.to(d0).to(torch.int32),
             meta_dist=meta_dist.to(d0).to(torch.int32),
             us=us.to(d0), vs=vs.to(d0), max_levels=max_levels,
-            max_chain=max_chain)
+            max_chain=max_chain,
+            attach_plan=make_attach_plan(src_sh, dst_sh, vstart, v_loc,
+                                         landmarks_sh, n_vertices))
 
     return step
 

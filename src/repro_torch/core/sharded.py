@@ -10,9 +10,12 @@ serves from them without materializing a full table:
   ``general_lane``): sketch rows for (u, v) come from the owning shard
   (owned-else-INF, then ``pmin``); the sketch is computed once, on the
   mesh's first device, by one ``ops.sketch_batch`` call, and replicated;
-  the sketch-bounded Bi-BFS, the reverse sweeps and the recover chains run
+  the sketch-bounded Bi-BFS and the reverse sweeps run
   ``frontier.segment_or`` on each shard's dst-owned edges with one
-  bit-packed ``all_gather`` of the frontier per level (the halo exchange).
+  bit-packed ``all_gather`` of the frontier per level (the halo exchange);
+  the recover's attachments, every landmark at once, are
+  ``kernels.ops.sharded_attach`` (kernels on the cards, with one all-gather
+  of raw word tables per closure step).
   Edge-source label columns come from a transient gather of the packed
   table, so the resident footprint stays one block per device.
 * **Landmark lanes** (``make_sharded_landmark_pair_step`` /
@@ -42,6 +45,8 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..kernels import ops
+from ..kernels.attach_sharded import AttachInputs, AttachPlan, make_attach_plan
 from .distributed import (
     EdgePartition,
     Halo,
@@ -94,7 +99,8 @@ def _landmark_ids(ids: torch.Tensor, landmarks: torch.Tensor) -> torch.Tensor:
 def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
                  n_vertices: int, src_sh, dst_sh, labels_sh, label_src_sh,
                  landmarks_sh, meta_w, meta_dist, us: torch.Tensor,
-                 vs: torch.Tensor, max_levels: int, max_chain: int):
+                 vs: torch.Tensor, max_levels: int, max_chain: int,
+                 attach_plan: AttachPlan):
     """The general lane on vertex-sharded tables, shared by the sharded
     index and ``core.scale_serve``: phases A (label rows), B (sketch), C
     (bounded Bi-BFS), D (reverse sweeps), E (recover).  See the reference's
@@ -105,16 +111,19 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
     sources, ``n_own[s]`` the local rows shard ``s`` answers for (its block
     size, or ``v_loc`` as in ``scale_serve``); ``meta_w`` / ``meta_dist``
     ``(R, R)`` int32 and ``us`` / ``vs`` ``(B,)`` on ``mesh.devices[0]``.
-    Returns each shard's ``(B, E)`` certified local edges and ``dist (B,)``
-    on ``mesh.devices[0]``.
+    Phase E1 is ``kernels.ops.sharded_attach`` (the hand-written kernels on
+    the cards); ``attach_plan`` is what its kernels read of the index
+    (``make_attach_plan``).  Returns each shard's ``(B, E)`` certified
+    local edges and ``dist (B,)`` on ``mesh.devices[0]``.
 
     Under a profiler each phase is a span over the mesh's devices:
     ``sharded.labels`` (the edge-destination label rows), ``sharded.fetch``
     (A), ``sharded.sketch`` (B), ``sharded.bfs`` (C), ``sharded.sweep``
     (D), ``sharded.attach`` (E1), ``sharded.delta`` (E2) and
     ``sharded.combine`` (the lanes' masks); counters ``sharded.levels``
-    (passes of C's loop) and ``sharded.host_syncs`` (the host's waits:
-    loop tests, ``nonzero``, ``.tolist()``)."""
+    (passes of C's loop), ``sharded.host_syncs`` (the host's waits: loop
+    tests, ``nonzero``, ``.tolist()``) and, on the cards,
+    ``sharded.closure_steps`` (E1's closure steps, all landmarks at once)."""
     rep = mesh.replicate
     devs = mesh.devices
     n_shards = mesh.n_shards
@@ -250,49 +259,15 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
     with trace.span("sharded.sweep", devs):
         rev_edges = [a | c for a, c in zip(sweep(depth_u, du), sweep(depth_v, dv))]
 
-    # ---- E1: per-landmark side attachments, both sides as 2B rows ---------
+    # ---- E1: side attachments, every landmark, both sides as 2B rows -----
     with trace.span("sharded.attach", devs):
-        rec2 = [torch.zeros((2 * b, d.shape[0]), dtype=torch.bool, device=d.device)
-                for d in dst_l]
-        sides = [torch.cat([du_, dv_]) for du_, dv_ in zip(depth_u, depth_v)]
-        for ri in range(r):
-            sigma = rep(torch.cat([sk.du_land[:, ri], sk.dv_land[:, ri]]))
-            dec, hin, hout, on = [], [], [], []
-            for s in range(n_shards):
-                ls_e = label_src_sh[s][:, ri]
-                ld_e = label_dst[s][:, ri]
-                # the label-decrement edges carry the chain and the interior
-                # edges; hops into / out of landmark ri are local subsets
-                dec.append(torch.nonzero(gm_e[s] & (ld_e == ls_e - 1)
-                                         & (ld_e < INF))[:, 0])
-                hin.append(torch.nonzero((dst_lid[s] == ri) & (ls_e == 1))[:, 0])
-                hout.append(torch.nonzero((src_lid[s] == ri) & (ld_e == 1))[:, 0])
-                trace.count("sharded.host_syncs", 3)
-                lcol = torch.cat([labels_sh[s][:, ri],
-                                  torch.full((1,), INF, dtype=torch.int32,
-                                             device=ls_e.device)])[None, :]
-                sg = sigma[s][:, None]
-                on.append((sides[s] < INF) & (lcol < INF) & (sides[s] + lcol == sg)
-                          & (sg < INF))
-            for _ in range(max_chain):
-                bits = halo([o[:, :vloc] for o in on], dec)
-                moved = []
-                for s in range(n_shards):
-                    grown = on[s] | segment_or(bits[s], dst_l[s][dec[s]], vloc + 1)
-                    moved.append((grown != on[s]).any().to(torch.int32)[None])
-                    on[s] = grown
-                trace.count("sharded.host_syncs")
-                if not bool(mesh.psum(moved)[0]):
-                    break   # a fixed point: the remaining steps change nothing
-            both = [torch.cat([a, c]) for a, c in zip(dec, hin)]
-            bits = halo([o[:, :vloc] for o in on], both)
-            for s in range(n_shards):
-                k = dec[s].shape[0]
-                interior = bits[s][:, :k] & on[s][:, dst_l[s][dec[s]]]
-                rec2[s][:, dec[s]] |= interior
-                rec2[s][:, hin[s]] |= bits[s][:, k:]
-                rec2[s][:, hout[s]] |= on[s][:, dst_l[s][hout[s]]]
-        rec_edges = [x[:b] | x[b:] for x in rec2]
+        inp = AttachInputs(
+            sides=[torch.cat([du_, dv_]) for du_, dv_ in zip(depth_u, depth_v)],
+            sigma=rep(torch.cat([sk.du_land, sk.dv_land])), labels=labels_sh,
+            label_src=label_src_sh, label_dst=label_dst, dst_l=dst_l,
+            src_lid=src_lid, dst_lid=dst_lid, gm_e=gm_e)
+        rec_edges = ops.sharded_attach(mesh, halo, attach_plan, inp, max_chain)
+        del inp
 
     # ---- E2: Delta edges (fully local) ------------------------------------
     # A pair (i, j) outside a query's sketch enters the reference's min as
@@ -345,14 +320,15 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
 
 def make_sharded_general_step(mesh: Mesh, *, n_vertices: int, v_loc: int,
                               n_edges: int, max_levels: int = 32,
-                              max_chain: int = 8):
+                              max_chain: int = 8, attach_plan: AttachPlan):
     """General lane from vertex-sharded packed tables:
     ``step(src_sh, dst_sh, eid_sh, rev_sh, vstart, nloc, labels_sh,
     landmarks_sh, meta_w, meta_dist, us, vs)`` -> ``(edge_mask (B,
     n_edges), dist (B,))`` on ``mesh.devices[0]``, symmetrized.  The
     packed blocks are widened per shard, and each shard's edge-source
     label rows come from a transient all-gather of the packed table (the
-    words cross packed and widen at the consumer, never resident)."""
+    words cross packed and widen at the consumer, never resident).
+    ``attach_plan``: the index's, for phase E1 (``general_lane``)."""
     vloc = v_loc
 
     def step(src_sh, dst_sh, eid_sh, rev_sh, vstart, nloc, labels_sh,
@@ -371,7 +347,7 @@ def make_sharded_general_step(mesh: Mesh, *, n_vertices: int, v_loc: int,
             meta_w=widen_dist(meta_w_p[0]).to(d0),
             meta_dist=widen_dist(meta_dist_p[0]).to(d0),
             us=us.to(d0), vs=vs.to(d0), max_levels=max_levels,
-            max_chain=max_chain)
+            max_chain=max_chain, attach_plan=attach_plan)
         return _scatter_symmetrize(mesh, masks, eid_sh, rev_sh, n_edges), dist
 
     return step
@@ -520,11 +496,16 @@ class ShardedIndex:
         self._rev_eid_sh = [rev_full[t.to(gdev, torch.int64)].to(d)
                             for t, d in zip(self._eid_sh, mesh.devices)]
         del rev_full
+        # what the attach's kernels read: each shard's in-edge CSR, its
+        # closure segments, the landmark ids
+        self._attach_plan = make_attach_plan(self._src_sh, self._dst_sh,
+                                             labels.vstart, part.v_loc,
+                                             labels.landmarks, v)
 
         common = dict(v_loc=part.v_loc, n_edges=graph.n_edges)
         self._general = make_sharded_general_step(
             mesh, n_vertices=v, max_levels=max_levels,
-            max_chain=max_chain, **common)
+            max_chain=max_chain, attach_plan=self._attach_plan, **common)
         self._lm_pair = make_sharded_landmark_pair_step(mesh, **common)
         self._onesided = make_sharded_onesided_step(mesh, max_levels=max_levels,
                                                     **common)

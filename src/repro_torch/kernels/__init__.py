@@ -14,6 +14,10 @@ PyTorch versions and the dispatch seam (``ops``).
 * ``side_attach``          — one side of the recover search's attach:
                              certificate, closure steps and edge pass over
                              row-packed words (``csrc/side_attach.cu``)
+* ``sharded_attach``       — the sharded general lane's attach, every
+                             landmark and both sides, per shard over its
+                             in-edges and gathered word tables
+                             (``csrc/sharded_attach.cu``)
 
 Nothing is compiled at import; ``_build`` runs ``nvcc`` on first launch.
 """
@@ -24,11 +28,12 @@ from .ops import (
     hybrid_relay,
     minplus,
     reset_launches,
+    sharded_attach,
     side_attach,
     sketch_batch,
     sketch_d_top,
 )
 
 __all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
-           "minplus", "reset_launches", "side_attach", "sketch_batch",
-           "sketch_d_top"]
+           "minplus", "reset_launches", "sharded_attach", "side_attach",
+           "sketch_batch", "sketch_d_top"]

@@ -15,8 +15,9 @@ build or bind the same library twice.
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where
 it launches its kernel and nowhere else (``kernels.ops.LAUNCHES``).  The
 fused relay's one count per call stands for its two launches (pack, then
-pull); the side attach counts each of its kernels' launches (certificate,
-each closure step, edge pass).
+pull); the side attach and the sharded attach count each of their kernels'
+launches (certificate, each closure step, edge pass; the sharded attach's
+once per shard).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("minplus", "sketch_batch", "bitmap_expand_packed", "bitmap_expand",
-           "hybrid_relay", "side_attach")
+           "hybrid_relay", "side_attach", "sharded_attach")
 
 LAUNCHES = {name: 0 for name in SOURCES}
 

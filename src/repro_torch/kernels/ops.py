@@ -5,7 +5,7 @@ The device of the tensors decides, and there is no ``use_pallas`` switch:
 * a CUDA tensor launches the hand-written kernel (``minplus.minplus_cuda``,
   ``sketch.sketch_batch_cuda``, ``frontier.bitmap_expand_packed_cuda``,
   ``frontier.bitmap_expand_cuda``, ``frontier.hybrid_relay_cuda``,
-  ``attach.side_attach_cuda``) or
+  ``attach.side_attach_cuda``, ``attach_sharded.sharded_attach_cuda``) or
   raises: no ``try`` that falls back, no path that goes on running on the
   CPU;
 * a CPU tensor takes the kernel's plain PyTorch version (``ref``).
@@ -30,11 +30,17 @@ from .frontier import (
     hybrid_relay_cuda,
 )
 from .minplus import check_minplus_args, minplus_cuda
+from .attach_sharded import (
+    AttachInputs,
+    AttachPlan,
+    check_sharded_attach_args,
+    sharded_attach_cuda,
+)
 from .sketch import check_sketch_args, sketch_batch_cuda
 
 __all__ = ["LAUNCHES", "bitmap_expand", "bitmap_expand_packed", "hybrid_relay",
-           "minplus", "reset_launches", "side_attach", "sketch_batch",
-           "sketch_d_top"]
+           "minplus", "reset_launches", "sharded_attach", "side_attach",
+           "sketch_batch", "sketch_d_top"]
 
 
 def reset_launches() -> None:
@@ -108,6 +114,20 @@ def side_attach(depth: torch.Tensor, side_land: torch.Tensor,
                            max_chain, out)
     return ref.side_attach_ref(depth, side_land, label_dist, indptr, src, dst,
                                lid, max_chain, out)
+
+
+def sharded_attach(mesh, halo, plan: AttachPlan, inp: AttachInputs,
+                   max_chain: int) -> list:
+    """Phase E1 of the sharded general lane (``core.sharded.general_lane``):
+    every landmark's side attachments and anchor chains for both sides of a
+    chunk over the mesh's shards, exchanging through ``halo`` -> each
+    shard's ``(B, E)`` bool certified edges.  ``plan`` is what the kernels
+    read of the index (``attach_sharded.make_attach_plan``); the plain
+    version reads ``inp`` alone."""
+    if _on_cuda(*inp.sides, *inp.label_src):
+        return sharded_attach_cuda(mesh, halo, plan, inp, max_chain)
+    check_sharded_attach_args(plan, inp, max_chain)
+    return ref.sharded_attach_ref(mesh, halo, inp, max_chain)
 
 
 def sketch_batch(lu: torch.Tensor, lv: torch.Tensor, meta_w: torch.Tensor,

@@ -234,3 +234,60 @@ def side_attach_ref(depth: torch.Tensor, side_land: torch.Tensor,
     if out is not None:
         edges = out.bitwise_or_(edges)
     return edges, pack_on(on)
+
+
+def sharded_attach_ref(mesh, halo, inp, max_chain: int) -> list:
+    """Phase E1 of ``core.sharded.general_lane`` on per-shard lists
+    (``attach_sharded.AttachInputs``): for each landmark, the label-decrement
+    edges, the hops into and out of it (three ``nonzero``s per shard), the
+    pointwise certificate of the 2B rows, the anchor-chain closure over the
+    decrement edges with one ``halo`` exchange per step until no shard moves
+    or ``max_chain`` steps, and the certified edges ORed into a ``(2B, E)``
+    block.  Returns each shard's ``(B, E)`` bool, row ``b`` ORed with row
+    ``b + B``."""
+    from ..core.frontier import segment_or   # core.frontier imports this module
+
+    n_shards = mesh.n_shards
+    b2, r = inp.sigma[0].shape
+    vloc = inp.labels[0].shape[0]
+    dst_l = inp.dst_l
+    rec2 = [torch.zeros((b2, d.shape[0]), dtype=torch.bool, device=d.device)
+            for d in dst_l]
+    for ri in range(r):
+        dec, hin, hout, on = [], [], [], []
+        for s in range(n_shards):
+            ls_e = inp.label_src[s][:, ri]
+            ld_e = inp.label_dst[s][:, ri]
+            # the label-decrement edges carry the chain and the interior
+            # edges; hops into / out of landmark ri are local subsets
+            dec.append(torch.nonzero(inp.gm_e[s] & (ld_e == ls_e - 1)
+                                     & (ld_e < INF))[:, 0])
+            hin.append(torch.nonzero((inp.dst_lid[s] == ri) & (ls_e == 1))[:, 0])
+            hout.append(torch.nonzero((inp.src_lid[s] == ri) & (ld_e == 1))[:, 0])
+            trace.count("sharded.host_syncs", 3)
+            lcol = torch.cat([inp.labels[s][:, ri],
+                              torch.full((1,), INF, dtype=torch.int32,
+                                         device=ls_e.device)])[None, :]
+            sg = inp.sigma[s][:, ri][:, None]
+            sides = inp.sides[s]
+            on.append((sides < INF) & (lcol < INF) & (sides + lcol == sg)
+                      & (sg < INF))
+        for _ in range(max_chain):
+            bits = halo([o[:, :vloc] for o in on], dec)
+            moved = []
+            for s in range(n_shards):
+                grown = on[s] | segment_or(bits[s], dst_l[s][dec[s]], vloc + 1)
+                moved.append((grown != on[s]).any().to(torch.int32)[None])
+                on[s] = grown
+            trace.count("sharded.host_syncs")
+            if not bool(mesh.psum(moved)[0]):
+                break   # a fixed point: the remaining steps change nothing
+        both = [torch.cat([a, c]) for a, c in zip(dec, hin)]
+        bits = halo([o[:, :vloc] for o in on], both)
+        for s in range(n_shards):
+            k = dec[s].shape[0]
+            interior = bits[s][:, :k] & on[s][:, dst_l[s][dec[s]]]
+            rec2[s][:, dec[s]] |= interior
+            rec2[s][:, hin[s]] |= bits[s][:, k:]
+            rec2[s][:, hout[s]] |= on[s][:, dst_l[s][hout[s]]]
+    return [x[:b2 // 2] | x[b2 // 2:] for x in rec2]

@@ -207,7 +207,8 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
                     torch.zeros((0,), dtype=i32), torch.full((4,), -1, dtype=i32), 3)
     assert LAUNCHES == before
     assert set(LAUNCHES) == {"minplus", "sketch_batch", "bitmap_expand_packed",
-                             "bitmap_expand", "hybrid_relay", "side_attach"}
+                             "bitmap_expand", "hybrid_relay", "side_attach",
+                             "sharded_attach"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

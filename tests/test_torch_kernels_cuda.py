@@ -530,3 +530,72 @@ def test_side_attach_kernel_matches_plain(cuda_device, maker, kw, b, max_chain):
     out = prev.clone()
     ops.side_attach(**a, max_chain=max_chain, out=out)
     assert torch.equal(out, prev | want_e)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_index(n_shards, max_chain):
+    from helpers import sharded_attach_cases as cases
+    return cases.index(n_shards, max_chain, device=torch.device("cuda"), n=600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_chain", [1, 16])
+@pytest.mark.parametrize("b", [1, 17, 32, 35])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_sharded_attach_kernels_match_plain(cuda_device, n_shards, b, max_chain):
+    """The sharded attach's kernels against the plain per-landmark loop on
+    one card's shards of a 600-vertex BA graph, inside ``general_lane`` on
+    the same inputs: each shard's (B, E) edges bit for bit, launches per
+    shard the certificate, each closure step and the edge pass."""
+    from helpers import sharded_attach_cases as cases
+
+    idx = _sharded_index(n_shards, max_chain)
+    us, vs = cases.pairs(idx, b, seed=b)
+    count = LAUNCHES["sharded_attach"]
+    with cases.both_paths() as rec:
+        idx.serve_step(us, vs)
+    launches = LAUNCHES["sharded_attach"] - count
+    (plain,), (kernel,), (steps,) = rec.plain, rec.kernel, rec.steps
+    for p, k in zip(plain, kernel):
+        assert p.is_cuda and k.is_cuda and torch.equal(p, k)
+    assert 1 <= steps <= max_chain
+    assert launches == n_shards * (2 + steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_sharded_index_on_the_card_launches_the_attach(cuda_device, n_shards):
+    """Unpatched, the card's sharded index takes the kernels (never the
+    plain loop) and answers as the same index on the CPU."""
+    from helpers import sharded_attach_cases as cases
+
+    idx = _sharded_index(n_shards, 16)
+    cpu = cases.index(n_shards, 16, n=600)
+    us, vs = cases.pairs(idx, 35, seed=7)
+    count = LAUNCHES["sharded_attach"]
+    d, m = idx.serve_step(us, vs)
+    assert LAUNCHES["sharded_attach"] - count >= 3 * n_shards
+    d_cpu, m_cpu = cpu.serve_step(us.cpu(), vs.cpu())
+    assert torch.equal(d.cpu(), d_cpu) and torch.equal(m.cpu(), m_cpu)
+
+
+@pytest.mark.cuda
+def test_sharded_attach_across_cards(cuda_device):
+    """On a mesh of every visible card (two or more), where the word tables
+    cross between cards: the kernels equal the plain loop on each shard,
+    and the index answers as on the CPU."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards: the tables cross between cards")
+    from helpers import sharded_attach_cases as cases
+
+    cards = [torch.device("cuda", i) for i in range(n)]
+    idx = cases.index(n, 16, device=cards[0], devices=cards, n=600)
+    cpu = cases.index(n, 16, n=600)
+    us, vs = cases.pairs(idx, 35, seed=11)
+    with cases.both_paths() as rec:
+        d, m = idx.serve_step(us, vs)
+    for s, (p, k) in enumerate(zip(rec.plain[0], rec.kernel[0])):
+        assert k.device == cards[s] and torch.equal(p, k)
+    d_cpu, m_cpu = cpu.serve_step(us.cpu(), vs.cpu())
+    assert torch.equal(d.cpu(), d_cpu) and torch.equal(m.cpu(), m_cpu)
