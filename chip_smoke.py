@@ -77,9 +77,6 @@ Phases (each raises on failure; nothing is caught):
    equal to the hybrid answers, ``sketch_batch`` and ``sharded_attach``
    only; ``max_levels`` and ``max_chain`` sized from the landmarks'
    measured eccentricity), then
-   ``mesh_service`` (``ServingService(idx_h, mesh=...)``: general chunks
-   split over the shards, ``sketch_batch``, ``hybrid_relay`` and
-   ``side_attach``) and
    ``scale_serve`` (one chunk of general pairs, ``sketch_batch`` and
    ``sharded_attach`` only); then the sharded attach at the orkut cell's
    shard (``check_sharded_attach``: one shard of 774,656 vertices and
@@ -673,7 +670,6 @@ def check_sharded_attach(core, ops, ref, v_loc=774_656, n_slots=58_600_000,
     ``max_chain`` 1 and ``depth``; then kernel and plain times beside the
     bytes bound and the time per launch.  Returns the JSON row."""
     from repro_torch.core.sharded import ShardedIndex
-    from repro_torch.kernels import attach_sharded as sa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1355,66 +1351,37 @@ def sharded_phase(core, ops, g, idx_h, us, vs, res_h, lanes, chunk, mesh,
     return counts
 
 
-def mesh_service_phase(ops, idx_h, us, vs, res_h, mesh):
-    """The batch-sharded service on the hybrid index: ``ServingService(idx_h,
-    mesh=mesh)`` splits every general chunk over the mesh's shards (the index
-    replicated per device); every answer equal to the hybrid index's.  The
-    counters are set to 0 just before ``query_batch`` and read just after."""
-    import warnings
-
-    from repro_torch.serving import ServingService
-
-    with warnings.catch_warnings(record=True) as warned:
-        warnings.simplefilter("always")
-        svc = ServingService(idx_h, mesh=mesh)
-    rounding = (f"chunk {idx_h.chunk} -> {svc.chunk}" if warned
-                else f"chunk {svc.chunk} divides over {mesh.n_shards} shards, not rounded")
-    sync_all()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res = svc.query_batch(us, vs)
-    sync_all()
-    dt = time.perf_counter() - t0
-    counts = dict(ops.LAUNCHES)
-    same_answers(res, res_h, "mesh service against hybrid")
-    log(f"[mesh_service] {len(us)} queries == hybrid over {mesh.n_shards} "
-        f"shards: {dt:.2f} s, {len(us) / dt:.1f} queries/s; {rounding}; "
-        f"chunk_roundings {svc.stats['chunk_roundings']}; launches {counts}")
-    return counts
-
-
 def scale_serve_phase(core, ops, g, idx_h, us, vs, res_h, rows, mesh):
     """``scale_serve`` (edge-aligned int16 source labels) on one chunk of
     general pairs with the hybrid index's scheme; distances and undirected
     SPG edges equal to the hybrid index's answers.  The counters are set to
     0 just before the call and read just after.  Returns the counts and the
-    bytes each shard's step was handed (``placed``): its own blocks (edges,
+    bytes each shard's lane was handed (``placed``): its own blocks (edges,
     int16 labels, edge-aligned source labels, landmarks), the inputs every
     shard reads from ``mesh.devices[0]`` (the meta pair, the queries) and
-    its entry of ``vstart``, which the port keeps on the host."""
+    its entry of ``vstart``, which the port keeps on the host.  They are
+    read where ``scale_serve`` hands them to ``general_lane``: the blocks
+    from its shard record, the label blocks at the int16 width it places
+    them in before it widens them for the lane."""
     import repro_torch.core.scale_serve as ss
 
     depth = search_depth(core, idx_h)
     placed = {}
-    make_step = ss.make_scale_serve_step
+    lane = ss.general_lane
 
-    def recording(mesh_, **kw):
-        step = make_step(mesh_, **kw)
-
-        def rec(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
-                meta_w, meta_dist, us_, vs_):
-            shared = sum(t.nbytes for t in (meta_w, meta_dist, us_, vs_))
-            placed["per_shard"] = [
-                sum(t[k].nbytes for t in (src_sh, dst_sh, labels_sh, lsrc_sh,
-                                          landmarks_sh)) + shared + vstart[k:k + 1].nbytes
-                for k in range(mesh_.n_shards)]
-            return step(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
-                        meta_w, meta_dist, us_, vs_)
-        return rec
+    def recording(record, labels, label_src, meta_w, meta_dist, us_, vs_):
+        shared = sum(t.nbytes for t in (meta_w, meta_dist, us_, vs_))
+        i16 = ss.INF16.itemsize
+        placed["per_shard"] = [
+            sum(t[k].nbytes for t in (record.src_sh, record.dst_sh, record.landmarks_sh))
+            + sum(t[k].numel() * i16 for t in (labels, label_src))
+            + shared + record.vstart[k:k + 1].nbytes
+            for k in range(record.mesh.n_shards)]
+        return lane(record, labels, label_src, meta_w, meta_dist, us_, vs_)
 
     sync_all()
     ops.reset_launches()
-    ss.make_scale_serve_step = recording
+    ss.general_lane = recording
     try:
         t0 = time.perf_counter()
         pairs, dist = ss.scale_serve(g, idx_h.scheme, mesh, us[rows], vs[rows],
@@ -1422,7 +1389,7 @@ def scale_serve_phase(core, ops, g, idx_h, us, vs, res_h, rows, mesh):
         sync_all()
         dt = time.perf_counter() - t0
     finally:
-        ss.make_scale_serve_step = make_step
+        ss.general_lane = lane
     counts = dict(ops.LAUNCHES)
     src = g.src.cpu().numpy()
     dst = g.dst.cpu().numpy()
@@ -1980,7 +1947,7 @@ def dryrun_phase(ops, core, g, mesh, n_queries, scale_placed):
        measured step (no gate);
     3. the ``qbs-scale-serve`` cell's per-shard ``argument_bytes``,
        computed for this graph at the mesh's shard count, equals the bytes
-       that ``scale_serve_phase`` handed each shard's step, exactly.
+       that ``scale_serve_phase`` handed each shard's lane, exactly.
 
     The counters are set to 0 before it and read after: it launches no
     kernel of the port's."""
@@ -2250,7 +2217,6 @@ def main() -> int:
     log(f"mesh: {mesh}")
     launches["sharded"] = sharded_phase(core, ops, g, idx_h, us, vs, res_h, lanes,
                                         chunk, mesh, args.breakdown)
-    launches["mesh_service"] = mesh_service_phase(ops, idx_h, us, vs, res_h, mesh)
     launches["scale_serve"], scale_placed = scale_serve_phase(
         core, ops, g, idx_h, us, vs, res_h, lanes["general"][:chunk], mesh)
     gc.collect()
@@ -2262,7 +2228,6 @@ def main() -> int:
                         ("replicas", general_lane),
                         ("update", ("hybrid_relay",)),
                         ("sharded", ("sketch_batch", "sharded_attach")),
-                        ("mesh_service", general_lane),
                         ("scale_serve", ("sketch_batch", "sharded_attach"))):
         for name, count in launches[path].items():
             if (name in names) != (count > 0):

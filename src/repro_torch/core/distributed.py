@@ -1,5 +1,5 @@
-"""Distributed QbS: edge-sharded labelling, born-sharded packed tables and
-batch-sharded query serving over a ``core.mesh.Mesh``.  Counterpart of
+"""Distributed QbS: the edge partition, the edge-sharded labelling and the
+born-sharded packed tables over a ``core.mesh.Mesh``.  Counterpart of
 ``repro.core.distributed``.
 
 * **Labelling** (offline): the R landmark BFSs are one batched frontier
@@ -22,11 +22,6 @@ batch-sharded query serving over a ``core.mesh.Mesh``.  Counterpart of
   are born one vertex block per device (``ShardedLabels``); only the
   (R, R) landmark block crosses to the host, for ``meta_apsp`` and the
   pack-dtype ladder.  ``core.sharded.ShardedIndex`` serves from them.
-* **Batch-sharded serving** (``make_serve_step``): queries are
-  embarrassingly parallel, so a chunk is split over the mesh with the index
-  replicated on every device.  The controller runs the shards' searches
-  one after another (each waits on the host every level), so this mode
-  does not answer faster than one device.
 
 A shard's state is a list entry, one per device of the mesh; the loop over
 shards is the ``shard_map`` body and every exchange is a ``Mesh``
@@ -41,21 +36,11 @@ import numpy as np
 import torch
 
 from .. import trace
-from .frontier import FrontierEngine, segment_or
+from .frontier import segment_or
 from .graph import INF, Graph
 from .labelling import LabellingScheme, meta_apsp
-from .mesh import Mesh, on_device
-from .packing import (
-    PackedLabels,
-    _np_dtype,
-    choose_pack_dtype,
-    pack_bits,
-    pack_dist,
-    sentinel_of,
-    take,
-)
-from .search import Query, SearchContext, guided_search
-from .sketch import compute_sketch_batch
+from .mesh import Mesh
+from .packing import _np_dtype, choose_pack_dtype, pack_bits, pack_dist, sentinel_of
 
 
 class EdgePartition(NamedTuple):
@@ -590,58 +575,3 @@ def distributed_build_sharded(  # qbslint: host-boundary
         n_vertices=v,
     ), part
 
-
-# ---------------------------------------------------------------------------
-# Batch-sharded serving
-# ---------------------------------------------------------------------------
-
-
-def _tree_to(x, device: torch.device):
-    """A search context (tensors, nested tuples, the relay engine) on
-    ``device``; tensors already there are shared, not copied."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    if isinstance(x, FrontierEngine):
-        return FrontierEngine({k: v.to(device) for k, v in x.arrays.items()},
-                              backend=x.backend, n_vertices=x.n_vertices,
-                              n_edges=x.n_edges, block_size=x.block_size)
-    if isinstance(x, tuple):
-        items = [_tree_to(a, device) for a in x]
-        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-    return x
-
-
-def make_serve_step(ctx: SearchContext, packed: PackedLabels, mesh: Mesh, *,
-                    n_vertices: int, max_levels: int = 64, max_chain: int = 64):
-    """A serve step ``(us, vs) -> (edge_mask, dist)`` whose batch is split
-    over the mesh, contiguous blocks of ``B / S`` rows, with the search
-    context and the packed tables replicated on every device (a device that
-    already holds them shares them).  Each shard runs the general lane's
-    sketch (``ops.sketch_batch``) and guided search on its rows; the
-    answers come back stacked on the queries' device, not yet symmetrized.
-    Rows are independent, so this equals one step over the whole batch."""
-    reps = [(_tree_to(ctx, d), _tree_to(packed, d)) for d in mesh.devices]
-
-    def step(us: torch.Tensor, vs: torch.Tensor):
-        d0 = us.device
-        n = mesh.n_shards
-        if us.shape[0] % n:
-            raise ValueError(f"batch of {us.shape[0]} does not split over "
-                             f"{n} shards")
-        masks, dists = [], []
-        for (c, p), d, u, v in zip(reps, mesh.devices, us.chunk(n), vs.chunk(n)):
-            with on_device(d):
-                u, v = u.to(d), v.to(d)
-                sk = compute_sketch_batch(take(p.label_dist, u.to(torch.int64)),
-                                          take(p.label_dist, v.to(torch.int64)),
-                                          p.meta_w, p.meta_dist)
-                q = Query(u=u, v=v, d_top=sk.d_top, du_land=sk.du_land,
-                          dv_land=sk.dv_land, meta_edge=sk.meta_edge,
-                          d_star_u=sk.d_star_u, d_star_v=sk.d_star_v)
-                res = guided_search(c, q, n_vertices, max_levels=max_levels,
-                                    max_chain=max_chain)
-            masks.append(res.edge_mask.to(d0))
-            dists.append(res.dist.to(d0))
-        return torch.cat(masks), torch.cat(dists)
-
-    return step

@@ -13,9 +13,7 @@ On distinct GPUs a collective is peer copies and a reduction on the
 destination.  Copies and kernel launches are asynchronous, so the shards'
 work on distinct devices overlaps only up to the next host wait: in the
 sharded lanes (``core.sharded``) that is the reduced stop test, once per
-level; the batch-sharded serve step (``core.distributed.make_serve_step``)
-waits on the host at every level of each shard's search, so its shards run
-one after another.  A mesh may repeat a device (``Mesh(["cpu"] * 4)``, or four shards
+level.  A mesh may repeat a device (``Mesh(["cpu"] * 4)``, or four shards
 on one card): that is how S > 1 runs on one device, as the reference runs
 it with ``--xla_force_host_platform_device_count``.
 

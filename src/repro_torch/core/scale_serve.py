@@ -12,8 +12,9 @@ Layout (per shard, S shards):
   queries      (B,), replicated; per-query scalars reduced over all shards
 
 The phases (label rows, sketch, bounded Bi-BFS, reverse sweeps, recover)
-are ``core.sharded.general_lane``'s; here they read the int16 blocks, and
-a shard owns every local row below ``v_loc``, as in the reference.  The
+are ``core.sharded.general_lane``'s, over a ``core.sharded.ShardRecord``
+of the placed blocks; here they read the int16 blocks widened, and a shard
+owns every local row below ``v_loc``, as in the reference.  The
 sketch is one ``ops.sketch_batch`` call (the fused kernel on the card).
 """
 from __future__ import annotations
@@ -21,47 +22,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.attach_sharded import make_attach_plan
 from .distributed import partition_graph
 from .graph import INF, Graph
 from .labelling import LabellingScheme
 from .mesh import Mesh, resolve_mesh
-from .sharded import general_lane
+from .sharded import general_lane, shard_record
 
 INF16 = np.int16(30_000)
 
 
 def _widen16(a: torch.Tensor) -> torch.Tensor:
     return torch.where(a >= int(INF16), INF, a.to(torch.int32))
-
-
-def make_scale_serve_step(mesh: Mesh, *, n_vertices: int, v_loc: int,
-                          batch: int, max_levels: int = 32, max_chain: int = 8):
-    """``step(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
-    meta_w, meta_dist, us, vs)`` -> ``(per-shard (B, E_loc) edge masks, dist
-    (B,))``: the masks mark each shard's dst-owned SPG edges, not
-    symmetrized; ``dist`` lies on ``mesh.devices[0]``.  There is no index,
-    so each call makes the attach's plan from the blocks it is handed."""
-
-    def step(src_sh, dst_sh, vstart, labels_sh, lsrc_sh, landmarks_sh,
-             meta_w, meta_dist, us, vs):
-        d0 = mesh.devices[0]
-        if us.shape[0] != batch:
-            raise ValueError(f"step built for batch {batch}, got {us.shape[0]}")
-        return general_lane(
-            mesh, vstart=vstart, n_own=[v_loc] * mesh.n_shards, v_loc=v_loc,
-            n_vertices=n_vertices, src_sh=src_sh, dst_sh=dst_sh,
-            labels_sh=[_widen16(t) for t in labels_sh],
-            label_src_sh=[_widen16(t) for t in lsrc_sh],
-            landmarks_sh=landmarks_sh,
-            meta_w=meta_w.to(d0).to(torch.int32),
-            meta_dist=meta_dist.to(d0).to(torch.int32),
-            us=us.to(d0), vs=vs.to(d0), max_levels=max_levels,
-            max_chain=max_chain,
-            attach_plan=make_attach_plan(src_sh, dst_sh, vstart, v_loc,
-                                         landmarks_sh, n_vertices))
-
-    return step
 
 
 def build_scale_inputs(graph: Graph, scheme: LabellingScheme, mesh: Mesh):
@@ -84,23 +55,28 @@ def build_scale_inputs(graph: Graph, scheme: LabellingScheme, mesh: Mesh):
     return part, labels_sh, lsrc
 
 
-def scale_serve(graph: Graph, scheme: LabellingScheme, mesh, us, vs, **kw):
-    """Run the vertex-sharded serving step on a graph.  ``mesh`` is a
+def scale_serve(graph: Graph, scheme: LabellingScheme, mesh, us, vs, *,
+                max_levels: int = 32, max_chain: int = 8):
+    """Run the vertex-sharded general lane on a graph.  ``mesh`` is a
     ``core.mesh.Mesh``, a device count or ``None`` (every CUDA device; raises
-    without one).  Returns (the set of undirected SPG edges per query, the
-    dist array)."""
+    without one).  There is no index, so each call makes the shard record,
+    and with it the attach's plan, from the blocks it places.  Returns (the
+    set of undirected SPG edges per query, the dist array)."""
     mesh = resolve_mesh(mesh)
     n_shards = mesh.n_shards
     part, labels_sh, lsrc = build_scale_inputs(graph, scheme, mesh)
     us = np.asarray(us, np.int32)
-    step = make_scale_serve_step(mesh, n_vertices=graph.n_vertices,
-                                 v_loc=part.v_loc, batch=us.shape[0], **kw)
     d0 = mesh.devices[0]
-    masks, dist = step(
-        mesh.shard(part.src), mesh.shard(part.dst_local), part.vstart,
-        mesh.shard(labels_sh), mesh.shard(lsrc),
+    src_sh, dst_sh = mesh.shard(part.src), mesh.shard(part.dst_local)
+    labels16, lsrc16 = mesh.shard(labels_sh), mesh.shard(lsrc)
+    record = shard_record(
+        mesh, src_sh, dst_sh, part.vstart, [part.v_loc] * n_shards, part.v_loc,
         mesh.replicate(scheme.landmarks.to(torch.int32)),
-        scheme.meta_w, scheme.meta_dist,
+        n_vertices=graph.n_vertices, n_edges=graph.n_edges,
+        max_levels=max_levels, max_chain=max_chain)
+    masks, dist = general_lane(
+        record, [_widen16(t) for t in labels16], [_widen16(t) for t in lsrc16],
+        scheme.meta_w.to(d0).to(torch.int32), scheme.meta_dist.to(d0).to(torch.int32),
         torch.as_tensor(us, device=d0),
         torch.as_tensor(np.asarray(vs, np.int32), device=d0))
     dist = dist.cpu().numpy()

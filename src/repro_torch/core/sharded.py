@@ -4,13 +4,15 @@ born-sharded tables.  Counterpart of ``repro.core.sharded``.
 ``distributed_build_sharded`` leaves the packed label table, the (R, V)
 landmark-distance table and the CSR edge partition resident one vertex
 block per device; ``ShardedIndex`` is the ``QbSIndex``-shaped facade that
-serves from them without materializing a full table:
+serves from them without materializing a full table.  Its three lanes are
+plain functions of one ``ShardRecord``, made once per index: the mesh, the
+block geometry, each shard's edge blocks and landmarks, and the attach's
+kernel tables (``make_attach_plan``).
 
-* **General lane** (``make_sharded_general_step``, over
-  ``general_lane``): sketch rows for (u, v) come from the owning shard
-  (owned-else-INF, then ``pmin``); the sketch is computed once, on the
-  mesh's first device, by one ``ops.sketch_batch`` call, and replicated;
-  the sketch-bounded Bi-BFS and the reverse sweeps run
+* **General lane** (``general_lane``): sketch rows for (u, v) come from the
+  owning shard (owned-else-INF, then ``pmin``); the sketch is computed
+  once, on the mesh's first device, by one ``ops.sketch_batch`` call, and
+  replicated; the sketch-bounded Bi-BFS and the reverse sweeps run
   ``frontier.segment_or`` on each shard's dst-owned edges with one
   bit-packed ``all_gather`` of the frontier per level (the halo exchange);
   the recover's attachments, every landmark at once, are
@@ -18,10 +20,10 @@ serves from them without materializing a full table:
   of raw word tables per closure step).
   Edge-source label columns come from a transient gather of the packed
   table, so the resident footprint stays one block per device.
-* **Landmark lanes** (``make_sharded_landmark_pair_step`` /
-  ``make_sharded_onesided_step``): gather exactly the B packed rows of the
-  landmark-distance table a chunk needs, then certify per local edge; the
-  one-sided lane adds the distance-bounded BFS, sharded level by level.
+* **Landmark lanes** (``landmark_pair_lane`` / ``onesided_lane``): gather
+  exactly the B packed rows of the landmark-distance table a chunk needs,
+  then certify per local edge; the one-sided lane adds the
+  distance-bounded BFS, sharded level by level.
 
 Every lane ends in the same **scatter-symmetrize**: each shard's certified
 edges land in the canonical ``(B, n_edges)`` mask at their global slot and
@@ -40,6 +42,8 @@ exceed the graph's diameter / longest recover chain; the defaults suit
 small graphs, and large runs size them from the measured diameter.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,6 +64,36 @@ from .mesh import Mesh, on_device, resolve_mesh
 from .packing import take, widen_dist
 from .qbs import SPGResult, _reverse_edge_map
 from .sketch import compute_sketch_batch
+
+
+class ShardRecord(NamedTuple):
+    """What the vertex-sharded lanes read of an index, made once
+    (``shard_record``): the lanes take it in place of per-shard lists."""
+
+    mesh: Mesh
+    vstart: np.ndarray        # (S,) int32 first vertex of each shard's block
+    n_own: np.ndarray         # (S,) local rows each shard answers for
+    v_loc: int                # padded block size
+    n_vertices: int
+    n_edges: int
+    src_sh: list              # per shard (E_max,) int32 global edge sources
+    dst_sh: list              # per shard (E_max,) int32 dst - vstart (pad: v_loc)
+    landmarks_sh: list        # per shard (R,) int32, replicated
+    attach_plan: AttachPlan   # what phase E1's kernels read
+    max_levels: int
+    max_chain: int
+
+
+def shard_record(mesh: Mesh, src_sh, dst_sh, vstart: np.ndarray, n_own,
+                 v_loc: int, landmarks_sh, *, n_vertices: int, n_edges: int,
+                 max_levels: int, max_chain: int) -> ShardRecord:
+    """The record of one index's shards, with its attach plan
+    (``make_attach_plan``: each shard's in-edge CSR, its closure segments,
+    the landmark ids)."""
+    plan = make_attach_plan(src_sh, dst_sh, vstart, v_loc, landmarks_sh, n_vertices)
+    return ShardRecord(mesh, vstart, np.asarray(n_own), v_loc, n_vertices,
+                       n_edges, list(src_sh), list(dst_sh), list(landmarks_sh),
+                       plan, max_levels, max_chain)
 
 
 def _scatter_symmetrize(mesh: Mesh, certs, eid_sh, rev_sh, n_edges: int):
@@ -96,25 +130,21 @@ def _landmark_ids(ids: torch.Tensor, landmarks: torch.Tensor) -> torch.Tensor:
     return torch.where(eq.any(dim=1), torch.argmax(eq.to(torch.int32), dim=1), -1)
 
 
-def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
-                 n_vertices: int, src_sh, dst_sh, labels_sh, label_src_sh,
-                 landmarks_sh, meta_w, meta_dist, us: torch.Tensor,
-                 vs: torch.Tensor, max_levels: int, max_chain: int,
-                 attach_plan: AttachPlan):
+def general_lane(record: ShardRecord, labels, label_src, meta_w, meta_dist,
+                 us: torch.Tensor, vs: torch.Tensor):
     """The general lane on vertex-sharded tables, shared by the sharded
     index and ``core.scale_serve``: phases A (label rows), B (sketch), C
     (bounded Bi-BFS), D (reverse sweeps), E (recover).  See the reference's
     ``core.scale_serve`` for the certificates.
 
-    ``labels_sh`` are the shards' ``(v_loc, R)`` int32 blocks (pad rows
-    INF), ``label_src_sh`` the ``(E, R)`` int32 labels of each shard's edge
-    sources, ``n_own[s]`` the local rows shard ``s`` answers for (its block
-    size, or ``v_loc`` as in ``scale_serve``); ``meta_w`` / ``meta_dist``
-    ``(R, R)`` int32 and ``us`` / ``vs`` ``(B,)`` on ``mesh.devices[0]``.
-    Phase E1 is ``kernels.ops.sharded_attach`` (the hand-written kernels on
-    the cards); ``attach_plan`` is what its kernels read of the index
-    (``make_attach_plan``).  Returns each shard's ``(B, E)`` certified
-    local edges and ``dist (B,)`` on ``mesh.devices[0]``.
+    ``labels`` are the shards' ``(v_loc, R)`` int32 blocks (pad rows INF),
+    ``label_src`` the ``(E, R)`` int32 labels of each shard's edge sources;
+    ``meta_w`` / ``meta_dist`` ``(R, R)`` int32 and ``us`` / ``vs`` ``(B,)``
+    on ``mesh.devices[0]``.  Shard ``s`` answers for its first
+    ``record.n_own[s]`` local rows.  Phase E1 is
+    ``kernels.ops.sharded_attach`` (the hand-written kernels on the cards,
+    reading ``record.attach_plan``).  Returns each shard's ``(B, E)``
+    certified local edges and ``dist (B,)`` on ``mesh.devices[0]``.
 
     Under a profiler each phase is a span over the mesh's devices:
     ``sharded.labels`` (the edge-destination label rows), ``sharded.fetch``
@@ -124,11 +154,13 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
     (passes of C's loop), ``sharded.host_syncs`` (the host's waits: loop
     tests, ``nonzero``, ``.tolist()``) and, on the cards,
     ``sharded.closure_steps`` (E1's closure steps, all landmarks at once)."""
+    mesh = record.mesh
     rep = mesh.replicate
     devs = mesh.devices
     n_shards = mesh.n_shards
     d0 = mesh.devices[0]
-    v, vloc = n_vertices, v_loc
+    v, vloc, vstart, n_own = record.n_vertices, record.v_loc, record.vstart, record.n_own
+    src_sh, dst_sh, max_levels = record.src_sh, record.dst_sh, record.max_levels
     b = us.shape[0]
     r = meta_w.shape[0]
     halo = Halo(mesh, src_sh, vstart, vloc)
@@ -139,11 +171,11 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
         src_lid, dst_lid, gm_e, label_dst = [], [], [], []
         for s in range(n_shards):
             dst_glob = torch.where(valid_e[s], int(vstart[s]) + dst_l[s], v)
-            src_lid.append(_landmark_ids(src_sh[s], landmarks_sh[s]))
-            dst_lid.append(_landmark_ids(dst_glob, landmarks_sh[s]))
+            src_lid.append(_landmark_ids(src_sh[s], record.landmarks_sh[s]))
+            dst_lid.append(_landmark_ids(dst_glob, record.landmarks_sh[s]))
             gm_e.append((src_lid[s] < 0) & (dst_lid[s] < 0) & valid_e[s])
             pad = torch.full((1, r), INF, dtype=torch.int32, device=dst_glob.device)
-            label_dst.append(torch.cat([labels_sh[s], pad])[dst_l[s]])
+            label_dst.append(torch.cat([labels[s], pad])[dst_l[s]])
 
     def owned(q_sh):
         out = []
@@ -156,7 +188,7 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
     def fetch_rows(q):
         rows = []
         for s, (own, loc) in enumerate(owned(rep(q))):
-            row = labels_sh[s][torch.clamp(loc, 0, vloc - 1)]
+            row = labels[s][torch.clamp(loc, 0, vloc - 1)]
             rows.append(torch.where(own[:, None], row, INF))
         return mesh.pmin(rows)[0]
 
@@ -263,10 +295,11 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
     with trace.span("sharded.attach", devs):
         inp = AttachInputs(
             sides=[torch.cat([du_, dv_]) for du_, dv_ in zip(depth_u, depth_v)],
-            sigma=rep(torch.cat([sk.du_land, sk.dv_land])), labels=labels_sh,
-            label_src=label_src_sh, label_dst=label_dst, dst_l=dst_l,
+            sigma=rep(torch.cat([sk.du_land, sk.dv_land])), labels=labels,
+            label_src=label_src, label_dst=label_dst, dst_l=dst_l,
             src_lid=src_lid, dst_lid=dst_lid, gm_e=gm_e)
-        rec_edges = ops.sharded_attach(mesh, halo, attach_plan, inp, max_chain)
+        rec_edges = ops.sharded_attach(mesh, halo, record.attach_plan, inp,
+                                       record.max_chain)
         del inp
 
     # ---- E2: Delta edges (fully local) ------------------------------------
@@ -285,7 +318,7 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
         fin_s, g1_s, w_s = rep(fin), rep(g1), rep(meta_w)
         delta = []
         for s in range(n_shards):
-            lsrc, ldst = label_src_sh[s], label_dst[s]
+            lsrc, ldst = label_src[s], label_dst[s]
             dev = lsrc.device
             minval = torch.full((b, lsrc.shape[0]), 3 * INF, dtype=torch.int32,
                                 device=dev)
@@ -318,133 +351,94 @@ def general_lane(mesh: Mesh, *, vstart: np.ndarray, n_own, v_loc: int,
     return masks, torch.where(trivial, 0, dist).to(torch.int32)
 
 
-def make_sharded_general_step(mesh: Mesh, *, n_vertices: int, v_loc: int,
-                              n_edges: int, max_levels: int = 32,
-                              max_chain: int = 8, attach_plan: AttachPlan):
-    """General lane from vertex-sharded packed tables:
-    ``step(src_sh, dst_sh, eid_sh, rev_sh, vstart, nloc, labels_sh,
-    landmarks_sh, meta_w, meta_dist, us, vs)`` -> ``(edge_mask (B,
-    n_edges), dist (B,))`` on ``mesh.devices[0]``, symmetrized.  The
-    packed blocks are widened per shard, and each shard's edge-source
-    label rows come from a transient all-gather of the packed table (the
-    words cross packed and widen at the consumer, never resident).
-    ``attach_plan``: the index's, for phase E1 (``general_lane``)."""
-    vloc = v_loc
-
-    def step(src_sh, dst_sh, eid_sh, rev_sh, vstart, nloc, labels_sh,
-             landmarks_sh, meta_w_p, meta_dist_p, us, vs):
-        with trace.span("sharded.labels", mesh.devices):
-            full = mesh.all_gather(labels_sh)                # (S, v_loc, R)
-            label_src = [_at_sources(x, src, vstart, vloc)
-                         for x, src in zip(full, src_sh)]
-            del full
-        d0 = mesh.devices[0]
-        masks, dist = general_lane(
-            mesh, vstart=vstart, n_own=nloc, v_loc=vloc, n_vertices=n_vertices,
-            src_sh=src_sh, dst_sh=dst_sh,
-            labels_sh=[widen_dist(t) for t in labels_sh],
-            label_src_sh=label_src, landmarks_sh=landmarks_sh,
-            meta_w=widen_dist(meta_w_p[0]).to(d0),
-            meta_dist=widen_dist(meta_dist_p[0]).to(d0),
-            us=us.to(d0), vs=vs.to(d0), max_levels=max_levels,
-            max_chain=max_chain, attach_plan=attach_plan)
-        return _scatter_symmetrize(mesh, masks, eid_sh, rev_sh, n_edges), dist
-
-    return step
-
-
-def make_sharded_landmark_pair_step(mesh: Mesh, *, v_loc: int, n_edges: int):
+def landmark_pair_lane(record: ShardRecord, lm_blocks, meta_dist, ru, rv):
     """Landmark-landmark lane from shards: the distance is a replicated
     ``meta_dist`` lookup; the SPG is certified per dst-owned edge from the
     two landmark-distance rows, each chunk gathering exactly its B packed
-    rows per side, never the table.  Bit-identical to
+    rows per side, never the table.  ``lm_blocks`` are the shards' packed
+    ``(R, v_loc)`` blocks, ``meta_dist`` the replicated packed ``(R, R)``
+    APSP.  Returns each shard's ``(B, E)`` certified local edges and
+    ``dist (B,)``; after the scatter-symmetrize, bit-identical to
     ``qbs._landmark_pair_lanes``."""
-    vloc = v_loc
-
-    def step(src_sh, dst_sh, eid_sh, rev_sh, vstart, lm_sh, meta_dist_p, ru, rv):
-        n = mesh.n_shards
-        ru_s = mesh.replicate(ru.to(torch.int64))
-        rv_s = mesh.replicate(rv.to(torch.int64))
-        full = mesh.all_gather([take(t, i) for t, i in zip(lm_sh, ru_s)])
-        certs = []
-        for s in range(n):
-            b = ru_s[s].shape[0]
-            at_src = _at_sources(full[s].transpose(1, 2), src_sh[s], vstart,
-                                 vloc).T                     # (B, E)
-            sel = widen_dist(take(lm_sh[s], rv_s[s]))
-            sel = torch.cat([sel, torch.full((b, 1), INF, dtype=torch.int32,
-                                             device=sel.device)], dim=1)
-            dst_l = dst_sh[s].to(torch.int64)
-            d = torch.clamp(widen_dist(take(meta_dist_p[s], ru_s[s], rv_s[s])),
-                            max=INF).to(torch.int32)
-            cert = (at_src + 1 + sel[:, dst_l]) == d[:, None]
-            certs.append(cert & (d < INF)[:, None] & (dst_l < vloc)[None, :])
-            if s == 0:
-                dist = d
-        return _scatter_symmetrize(mesh, certs, eid_sh, rev_sh, n_edges), dist
-
-    return step
+    mesh, vloc, vstart = record.mesh, record.v_loc, record.vstart
+    n = mesh.n_shards
+    ru_s = mesh.replicate(ru.to(torch.int64))
+    rv_s = mesh.replicate(rv.to(torch.int64))
+    full = mesh.all_gather([take(t, i) for t, i in zip(lm_blocks, ru_s)])
+    certs = []
+    for s in range(n):
+        b = ru_s[s].shape[0]
+        at_src = _at_sources(full[s].transpose(1, 2), record.src_sh[s], vstart,
+                             vloc).T                     # (B, E)
+        sel = widen_dist(take(lm_blocks[s], rv_s[s]))
+        sel = torch.cat([sel, torch.full((b, 1), INF, dtype=torch.int32,
+                                         device=sel.device)], dim=1)
+        dst_l = record.dst_sh[s].to(torch.int64)
+        d = torch.clamp(widen_dist(take(meta_dist[s], ru_s[s], rv_s[s])),
+                        max=INF).to(torch.int32)
+        cert = (at_src + 1 + sel[:, dst_l]) == d[:, None]
+        certs.append(cert & (d < INF)[:, None] & (dst_l < vloc)[None, :])
+        if s == 0:
+            dist = d
+    return certs, dist
 
 
-def make_sharded_onesided_step(mesh: Mesh, *, v_loc: int, n_edges: int,
-                               max_levels: int = 32):
+def onesided_lane(record: ShardRecord, lm_blocks, roots, r_idx):
     """One-sided landmark lane from shards: d(root, landmark) reads one
-    gathered packed row; the distance-bounded full-graph BFS from the root
-    runs level by level on local edges with the bit-packed halo exchange,
-    state for state as ``frontier.bfs_depths_batch``; then each dst-owned
-    edge is certified as in ``qbs._landmark_onesided_lanes``."""
-    vloc = v_loc
+    gathered packed row of ``lm_blocks`` (the shards' packed ``(R, v_loc)``
+    blocks); the distance-bounded full-graph BFS from the root runs level
+    by level on local edges with the bit-packed halo exchange, state for
+    state as ``frontier.bfs_depths_batch``; then each dst-owned edge is
+    certified as in ``qbs._landmark_onesided_lanes``.  Returns each shard's
+    ``(B, E)`` certified local edges and ``dist (B,)``."""
+    mesh, vloc, vstart = record.mesh, record.v_loc, record.vstart
+    n = mesh.n_shards
+    d0 = mesh.devices[0]
+    b = roots.shape[0]
+    halo = Halo(mesh, record.src_sh, vstart, vloc)
+    full = mesh.all_gather([take(t, i) for t, i in
+                            zip(lm_blocks, mesh.replicate(r_idx.to(torch.int64)))])
+    roots = roots.to(d0).to(torch.int64)
+    root_sh, root_off = gathered_position(roots, vstart)
+    flat0 = full[0].permute(1, 0, 2).reshape(b, n * vloc)
+    d = widen_dist(take(flat0, torch.arange(b, device=d0),
+                               root_sh * vloc + root_off))
+    bounds = torch.where(d < INF, d - 1, 0)
+    to_lm_src, depth, dst_l = [], [], []
+    for s, root in enumerate(mesh.replicate(roots)):
+        dev = root.device
+        to_lm_src.append(_at_sources(full[s].transpose(1, 2), record.src_sh[s],
+                                     vstart, vloc).T)    # (B, E)
+        loc = root - int(vstart[s])
+        own = (loc >= 0) & (loc < int(record.n_own[s]))
+        dep = torch.full((b, vloc + 1), INF, dtype=torch.int32, device=dev)
+        dep[torch.arange(b, device=dev), torch.where(own, loc, vloc)] = \
+            torch.where(own, 0, INF).to(torch.int32)
+        depth.append(dep)
+        dst_l.append(record.dst_sh[s].to(torch.int64))
 
-    def step(src_sh, dst_sh, eid_sh, rev_sh, vstart, nloc, lm_sh, roots, r_idx):
-        n = mesh.n_shards
-        d0 = mesh.devices[0]
-        b = roots.shape[0]
-        halo = Halo(mesh, src_sh, vstart, vloc)
-        full = mesh.all_gather([take(t, i) for t, i in
-                                zip(lm_sh, mesh.replicate(r_idx.to(torch.int64)))])
-        roots = roots.to(d0).to(torch.int64)
-        root_sh, root_off = gathered_position(roots, vstart)
-        flat0 = full[0].permute(1, 0, 2).reshape(b, n * vloc)
-        d = widen_dist(take(flat0, torch.arange(b, device=d0),
-                                   root_sh * vloc + root_off))
-        bounds = torch.where(d < INF, d - 1, 0)
-        to_lm_src, depth, dst_l = [], [], []
-        for s, root in enumerate(mesh.replicate(roots)):
-            dev = root.device
-            to_lm_src.append(_at_sources(full[s].transpose(1, 2), src_sh[s],
-                                         vstart, vloc).T)    # (B, E)
-            loc = root - int(vstart[s])
-            own = (loc >= 0) & (loc < int(nloc[s]))
-            dep = torch.full((b, vloc + 1), INF, dtype=torch.int32, device=dev)
-            dep[torch.arange(b, device=dev), torch.where(own, loc, vloc)] = \
-                torch.where(own, 0, INF).to(torch.int32)
-            depth.append(dep)
-            dst_l.append(dst_sh[s].to(torch.int64))
+    alive = torch.ones((b,), dtype=torch.bool, device=d0)
+    level = 0
+    while True:
+        act = alive & (level < record.max_levels) & (level < bounds)
+        if not bool(act.any()):
+            break
+        act_s = mesh.replicate(act)
+        bits = halo([(x[:, :vloc] == level) & a[:, None]
+                     for x, a in zip(depth, act_s)])
+        news = []
+        for s in range(n):
+            new = segment_or(bits[s], dst_l[s], vloc + 1) & (depth[s] == INF)
+            depth[s] = torch.where(new, level + 1, depth[s])
+            news.append(new[:, :vloc].any(dim=1).to(torch.int32))
+        alive = torch.where(act, mesh.psum(news)[0] > 0, alive)
+        level += 1
 
-        alive = torch.ones((b,), dtype=torch.bool, device=d0)
-        level = 0
-        while True:
-            act = alive & (level < max_levels) & (level < bounds)
-            if not bool(act.any()):
-                break
-            act_s = mesh.replicate(act)
-            bits = halo([(x[:, :vloc] == level) & a[:, None]
-                         for x, a in zip(depth, act_s)])
-            news = []
-            for s in range(n):
-                new = segment_or(bits[s], dst_l[s], vloc + 1) & (depth[s] == INF)
-                depth[s] = torch.where(new, level + 1, depth[s])
-                news.append(new[:, :vloc].any(dim=1).to(torch.int32))
-            alive = torch.where(act, mesh.psum(news)[0] > 0, alive)
-            level += 1
-
-        certs = []
-        for s, ds in enumerate(mesh.replicate(d)):
-            cert = (to_lm_src[s] + 1 + depth[s][:, dst_l[s]]) == ds[:, None]
-            certs.append(cert & (ds < INF)[:, None] & (dst_l[s] < vloc)[None, :])
-        return _scatter_symmetrize(mesh, certs, eid_sh, rev_sh, n_edges), d
-
-    return step
+    certs = []
+    for s, ds in enumerate(mesh.replicate(d)):
+        cert = (to_lm_src[s] + 1 + depth[s][:, dst_l[s]]) == ds[:, None]
+        certs.append(cert & (ds < INF)[:, None] & (dst_l[s] < vloc)[None, :])
+    return certs, d
 
 
 class ShardedIndex:
@@ -452,9 +446,10 @@ class ShardedIndex:
 
     The same per-lane steps and query delegates as ``QbSIndex`` (the
     planner and service layers run unchanged on top), but every step
-    answers from the vertex-sharded label and CSR blocks.
-    ``ServingService(mesh=...)`` batch sharding is refused: the index is
-    already mesh-resident (``is_sharded``)."""
+    answers from the vertex-sharded label and CSR blocks: the lanes read
+    ``self.record`` (``ShardRecord``), and the index keeps beside it only
+    what they are handed per chunk (``self.labels``) and the slot maps
+    its scatter-symmetrize reads."""
 
     is_sharded = True
     epoch = 0   # the sharded tables are build-once: dynamic updates are a
@@ -490,52 +485,55 @@ class ShardedIndex:
         rev_full = torch.cat([rev, torch.full((1,), graph.n_edges, dtype=torch.int64,
                                               device=gdev)])
         del rev
-        self._src_sh = mesh.shard(part.src)
-        self._dst_sh = mesh.shard(part.dst_local)
+        src_sh = mesh.shard(part.src)
+        dst_sh = mesh.shard(part.dst_local)
         self._eid_sh = [t.to(torch.int64) for t in mesh.shard(part.eid)]
         self._rev_eid_sh = [rev_full[t.to(gdev, torch.int64)].to(d)
                             for t, d in zip(self._eid_sh, mesh.devices)]
         del rev_full
-        # what the attach's kernels read: each shard's in-edge CSR, its
-        # closure segments, the landmark ids
-        self._attach_plan = make_attach_plan(self._src_sh, self._dst_sh,
-                                             labels.vstart, part.v_loc,
-                                             labels.landmarks, v)
+        self.record = shard_record(
+            mesh, src_sh, dst_sh, labels.vstart, labels.nloc, part.v_loc,
+            labels.landmarks, n_vertices=v, n_edges=graph.n_edges,
+            max_levels=max_levels, max_chain=max_chain)
 
-        common = dict(v_loc=part.v_loc, n_edges=graph.n_edges)
-        self._general = make_sharded_general_step(
-            mesh, n_vertices=v, max_levels=max_levels,
-            max_chain=max_chain, attach_plan=self._attach_plan, **common)
-        self._lm_pair = make_sharded_landmark_pair_step(mesh, **common)
-        self._onesided = make_sharded_onesided_step(mesh, max_levels=max_levels,
-                                                    **common)
+    def _symmetrized(self, certs):
+        return _scatter_symmetrize(self.mesh, certs, self._eid_sh,
+                                   self._rev_eid_sh, self.record.n_edges)
 
     # -- per-lane device steps (QbSIndex contract) ---------------------------
 
     def serve_step(self, us: torch.Tensor, vs: torch.Tensor):
         """General lane: ``(B,)`` pairs -> ``(dist (B,), edge_mask (B, E))``
-        on ``self.device``, already symmetrized (the scatter does it).
+        on ``self.device``, already symmetrized (the scatter does it).  The
+        packed blocks are widened per shard, and each shard's edge-source
+        label rows come from a transient all-gather of the packed table (the
+        words cross packed and widen at the consumer, never resident).
         Under a profiler each call is one chunk, a ``sharded.serve_step``
         span over the mesh's devices around the lane's spans."""
-        lab = self.labels
-        with trace.span("sharded.serve_step", self.mesh.devices, chunk=True):
-            mask, dist = self._general(
-                self._src_sh, self._dst_sh, self._eid_sh, self._rev_eid_sh,
-                lab.vstart, lab.nloc, lab.labels_sh, lab.landmarks, lab.meta_w,
-                lab.meta_dist, us, vs)
+        lab, rec = self.labels, self.record
+        devs = self.mesh.devices
+        with trace.span("sharded.serve_step", devs, chunk=True):
+            with trace.span("sharded.labels", devs):
+                full = self.mesh.all_gather(lab.labels_sh)       # (S, v_loc, R)
+                label_src = [_at_sources(x, src, rec.vstart, rec.v_loc)
+                             for x, src in zip(full, rec.src_sh)]
+                del full
+            d0 = self.device
+            certs, dist = general_lane(
+                rec, [widen_dist(t) for t in lab.labels_sh], label_src,
+                widen_dist(lab.meta_w[0]).to(d0), widen_dist(lab.meta_dist[0]).to(d0),
+                us.to(d0), vs.to(d0))
+            mask = self._symmetrized(certs)
         return dist, mask
 
     def landmark_pair_step(self, ru: torch.Tensor, rv: torch.Tensor):
-        mask, dist = self._lm_pair(
-            self._src_sh, self._dst_sh, self._eid_sh, self._rev_eid_sh,
-            self.labels.vstart, self.labels.lm_sh, self.labels.meta_dist, ru, rv)
-        return dist, mask
+        certs, dist = landmark_pair_lane(self.record, self.labels.lm_sh,
+                                         self.labels.meta_dist, ru, rv)
+        return dist, self._symmetrized(certs)
 
     def landmark_onesided_step(self, roots: torch.Tensor, r_idx: torch.Tensor):
-        mask, dist = self._onesided(
-            self._src_sh, self._dst_sh, self._eid_sh, self._rev_eid_sh,
-            self.labels.vstart, self.labels.nloc, self.labels.lm_sh, roots, r_idx)
-        return dist, mask
+        certs, dist = onesided_lane(self.record, self.labels.lm_sh, roots, r_idx)
+        return dist, self._symmetrized(certs)
 
     # -- memory accounting ---------------------------------------------------
 

@@ -518,8 +518,10 @@ def serve_args(n_vertices: int, n_edges: int, r: int, batch: int, n_shards: int)
 
 def qbs_serve_cell(graph, mesh: NamedMesh, *, batch: int | None = None) -> dict:
     """Replicated-label batched serving (graphs that fit per-device): the
-    index replicated, the batch split over every device
-    (``core.distributed.make_serve_step``)."""
+    index replicated, the batch split over every device.  The cell models
+    the reference's replicated-label step
+    (``repro.core.distributed.make_serve_step``); the port serves on several
+    cards through the vertex-sharded index only."""
     g = _graph(graph)
     if batch is None:  # one query per device
         batch = mesh.n_shards

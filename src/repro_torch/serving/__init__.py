@@ -28,7 +28,7 @@ from .serve_step import (
     make_spg_serve_step,
     serve_spg_batch,
 )
-from .service import ResultCache, ServingService, round_chunk_to_shards
+from .service import ResultCache, ServingService
 from .stream import AdmissionPolicy, QoSClass, QueryFuture, StreamingService
 
 __all__ = [
@@ -57,7 +57,6 @@ __all__ = [
     "merged_latency",
     "plan_from_pairs",
     "plan_queries",
-    "round_chunk_to_shards",
     "serve_metrics",
     "serve_spg_batch",
 ]

@@ -22,17 +22,12 @@ The planner owns *what* runs (``serving.planner``); the service owns *how*:
 * **Epochs.**  ``install_index`` swaps in the next epoch's index (an
   ``apply_update`` product); the cache keys carry the epoch, so an entry of
   an earlier epoch is never served.
-* **Multi-device.**  With ``mesh=`` (or ``devices=``), general-lane chunks
-  run batch-sharded over the mesh's devices through
-  ``core.distributed.make_serve_step`` (the index replicated per device,
-  each shard's rows through the sketch and the guided search), then through
-  the shared symmetrization.  The chunk is rounded up to a multiple of the
-  shard count.  Landmark lanes stay on the index's device.  A
-  ``ShardedIndex`` serves from its own mesh and is refused here.
+* **Several cards.**  The service runs each lane on the index's own steps:
+  a ``ShardedIndex`` (``core.sharded``) answers every lane vertex-sharded
+  over its mesh, and the service sees one index either way.
 """
 from __future__ import annotations
 
-import warnings
 from collections import OrderedDict, deque
 from functools import partial
 from typing import Callable, Iterator
@@ -41,10 +36,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..core.distributed import make_serve_step
 from ..core.graph import INF
-from ..core.mesh import Mesh, resolve_mesh
-from ..core.qbs import _symmetrize
 from .planner import (
     LANE_GENERAL,
     LANE_LANDMARK_PAIR,
@@ -233,30 +225,15 @@ class ResultCache:
             self._insert_packed(key, entry)
 
 
-def round_chunk_to_shards(chunk: int, n_shards: int) -> int:
-    """Round ``chunk`` up to a multiple of ``n_shards``."""
-    if chunk <= 0:
-        raise ValueError("chunk must be positive")
-    if n_shards <= 1 or chunk % n_shards == 0:
-        return chunk
-    return ((chunk + n_shards - 1) // n_shards) * n_shards
-
-
 class ServingService:
-    """Planner-routed, chunk-overlapped executor over a built ``QbSIndex``.
-
-    ``mesh=`` / ``devices=`` split every general chunk over a mesh, the
-    index replicated per device (``core.distributed.make_serve_step``).  On
-    this port that does not speed serving up: the one controller thread
-    runs the shards' searches one after another, each waiting on the host
-    at every level, so the mode answers the same queries no faster than
-    the index alone, on one card or on several."""
+    """Planner-routed, chunk-overlapped executor over a built ``QbSIndex``
+    or ``ShardedIndex``."""
 
     def __init__(self, index, *, async_depth: int = 2, cache_size: int = 0,
                  cache_policy: str = "lru", protected_frac: float = 0.5,
                  hub_top_frac: float = 0.01, cache_admission: str = "all",
                  cache_size_bytes: int | None = None,
-                 chunk: int | None = None, mesh=None, devices=None):
+                 chunk: int | None = None):
         self.index = index
         self.chunk = int(index.chunk if chunk is None else chunk)
         if self.chunk <= 0:
@@ -292,44 +269,7 @@ class ServingService:
             self._seen_once = OrderedDict()
             self._seen_cap = max(64, 4 * min(self.cache.capacity, 1 << 16))
         self.lane_served = [0] * N_LANES   # unique pairs answered per lane
-        # service-level counters; chunk_roundings counts admission-time
-        # widths rounded up to the shard multiple (warned once, counted
-        # always)
-        self.stats = {"chunk_roundings": 0, "installs": 0}
-        self._warned_rounding = False
-
-        if (mesh is not None or devices is not None) and getattr(
-                index, "is_sharded", False):
-            # a ShardedIndex's lane steps already run vertex-sharded over
-            # its own mesh; batch sharding on top would need the replicated
-            # tables the sharded index exists not to hold
-            raise ValueError(
-                "mesh=/devices= batch sharding cannot wrap a sharded index; "
-                "ShardedIndex serves from its own mesh already")
-        if mesh is None and devices is not None:
-            mesh = devices if isinstance(devices, int) else Mesh(devices)
-        self._sharded_general = None
-        self._n_shards = 1
-        self._mesh = None
-        if mesh is not None:
-            self._mesh = resolve_mesh(mesh)
-            self._n_shards = self._mesh.n_shards
-            rounded = round_chunk_to_shards(self.chunk, self._n_shards)
-            if rounded != self.chunk:
-                self._warned_rounding = True
-                warnings.warn(
-                    f"chunk={self.chunk} does not divide over "
-                    f"{self._n_shards} shards; rounding up to {rounded}",
-                    stacklevel=2)
-                self.chunk = rounded
-            self._sharded_general = self._make_sharded_general()
-
-    def _make_sharded_general(self):
-        index = self.index
-        return make_serve_step(
-            index.ctx, index.packed, self._mesh,
-            n_vertices=index.graph.n_vertices, max_levels=index.max_levels,
-            max_chain=index.max_chain)
+        self.stats = {"installs": 0}        # service-level counters
 
     def install_index(self, index) -> None:
         """Swap in the next epoch's index (an ``apply_update`` product).
@@ -346,8 +286,6 @@ class ServingService:
                 f"serving epoch {self.index.epoch}")
         self.index = index
         self.stats["installs"] += 1
-        if self._mesh is not None:
-            self._sharded_general = self._make_sharded_general()
 
     def _hub_protect(self, hub_top_frac: float):
         """Protect predicate of the hub policy: either endpoint is a
@@ -362,38 +300,17 @@ class ServingService:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.index.device)
 
-    def _general_step(self, cu: torch.Tensor, cv: torch.Tensor):
-        if self._sharded_general is None:
-            return self.index.serve_step(cu, cv)
-        mask, dist = self._sharded_general(cu, cv)
-        return _symmetrize(dist, mask, self.index._rev_edge_t)
-
     def _chunks(self, plan: QueryPlan, chunk: int | None = None):
         """Yield ``(unique_rows (chunk,), live, dispatch)`` per lane chunk;
-        ``dispatch()`` runs the device step and returns device tensors
+        ``dispatch()`` runs the index's step and returns device tensors
         ``(dist (chunk,), edge_mask (chunk, E))``.  ``chunk`` overrides the
-        service's width for this plan (the streaming layer picks it); a
-        sharded service rounds it up to the shard multiple, warned once per
-        service and counted in ``stats['chunk_roundings']`` every time."""
-        if chunk is None:
-            chunk = self.chunk
-        else:
-            rounded = round_chunk_to_shards(int(chunk), self._n_shards)
-            if rounded != chunk:
-                self.stats["chunk_roundings"] += 1
-                if not self._warned_rounding:
-                    self._warned_rounding = True
-                    warnings.warn(
-                        f"admitted chunk={chunk} does not divide over "
-                        f"{self._n_shards} shards; rounding up to {rounded} "
-                        f"(warned once; see stats['chunk_roundings'])",
-                        stacklevel=2)
-            chunk = rounded
+        service's width for this plan (the streaming layer picks it)."""
+        chunk = self.chunk if chunk is None else int(chunk)
         idx = self.index
         lid = idx._lid_np
 
         for sel, live in chunk_padded(plan.lanes[LANE_GENERAL], chunk):
-            yield sel, live, partial(self._general_step,
+            yield sel, live, partial(idx.serve_step,
                                      self._tensor(plan.cu[sel]),
                                      self._tensor(plan.cv[sel]))
 

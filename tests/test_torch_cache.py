@@ -17,14 +17,12 @@ from repro.core import QbSIndex as JIndex  # noqa: E402
 from repro.core import gnp_random_graph as j_gnp  # noqa: E402
 from repro.serving import ResultCache as JCache  # noqa: E402
 from repro.serving import ServingService as JService  # noqa: E402
-from repro.serving import round_chunk_to_shards as j_round  # noqa: E402
 from repro.serving.service import _pack_result as j_pack  # noqa: E402
 from repro.serving.service import _unpack_result as j_unpack  # noqa: E402
 from repro_torch.core import QbSIndex as TIndex  # noqa: E402
 from repro_torch.core import gnp_random_graph as t_gnp  # noqa: E402
 from repro_torch.serving import ResultCache as TCache  # noqa: E402
 from repro_torch.serving import ServingService as TService  # noqa: E402
-from repro_torch.serving import round_chunk_to_shards as t_round  # noqa: E402
 from repro_torch.serving.service import _pack_result as t_pack  # noqa: E402
 from repro_torch.serving.service import _unpack_result as t_unpack  # noqa: E402
 
@@ -149,10 +147,6 @@ def test_cache_validation():
     for bad in (dict(capacity=-1), dict(capacity=1, capacity_bytes=-1)):
         with pytest.raises(ValueError):
             TCache(**bad)
-    for c, s in [(5, 1), (5, 2), (8, 4), (7, 3)]:
-        assert t_round(c, s) == j_round(c, s)
-    with pytest.raises(ValueError):
-        t_round(0, 2)
 
 
 @pytest.fixture(scope="module")
@@ -206,26 +200,23 @@ def test_service_cache_policies_match_reference(pair, config):
         _same_counters(sj.cache, st.cache)
         _same_export(sj.cache.export_packed(), st.cache.export_packed())
     assert st.cache.hits > 0
-    assert st.stats == sj.stats
+    # every counter the port keeps equals the reference's (the reference
+    # also counts its mesh mode's rounded widths: the port has no such mode)
+    assert st.stats == {k: sj.stats[k] for k in st.stats}
 
 
-def test_service_validation_and_install_guards(pair, monkeypatch):
-    from repro_torch.core import Mesh
-
+def test_service_validation_and_install_guards(pair):
     _, tidx = pair
     for bad in (dict(cache_size=4, cache_policy="lfu"),
                 dict(cache_size=4, cache_admission="never")):
         with pytest.raises(ValueError, match="unknown"):
             TService(tidx, **bad)
-    # the batch-sharded mode: a device count means CUDA cards, a Mesh runs
-    # where its devices are
-    with monkeypatch.context() as m:
-        m.setattr(torch.cuda, "is_available", lambda: False)
-        for multi in (dict(devices=1), dict(mesh=2)):
-            with pytest.raises(RuntimeError, match="no CUDA device"):
-                TService(tidx, **multi)
-    meshed = TService(tidx, mesh=Mesh(["cpu"] * 2))
-    assert meshed._n_shards == 2 and meshed.chunk % 2 == 0
+    # several cards are served by a ShardedIndex, not by the service
+    for gone in ("mesh", "devices"):
+        with pytest.raises(TypeError, match=gone):
+            TService(tidx, **{gone: 2})
+        with pytest.raises(TypeError, match=gone):
+            tidx.make_stream(**{gone: 2})
     svc = tidx.make_service(cache_size=4)
     with pytest.raises(ValueError, match="not ahead"):
         svc.install_index(tidx)              # same epoch: a stale install

@@ -113,4 +113,4 @@ def test_sharded_slot_maps_equal_host_reverse_map(s):
         assert np.array_equal(idx._eid_sh[k].numpy(), want.eid[k])
         assert np.array_equal(idx._rev_eid_sh[k].numpy(), rev_full[want.eid[k]])
         assert np.array_equal(idx.part.src[k].numpy(), want.src[k])
-        assert idx._src_sh[k] is idx.part.src[k]         # placed once, shared
+        assert idx.record.src_sh[k] is idx.part.src[k]         # placed once, shared

@@ -71,7 +71,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.core.scale_serve import scale_serve
     from repro_torch.core.sharded import ShardedIndex
     from repro_torch.launch import serve
-    from repro_torch.serving import ServingService
 
     g = gnp_random_graph(20, 3.0, seed=1, device="cpu")
     idx = QbSIndex.build(g, n_landmarks=2, device="cpu")
@@ -94,9 +93,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: QbSIndex.build(g, n_landmarks=2, sharded=True),
                  lambda: QbSIndex.build(g, n_landmarks=2, sharded=2),
                  lambda: scale_serve(g, idx.scheme, None, [0], [5]),
-                 lambda: ServingService(idx, mesh=2),
-                 lambda: ServingService(idx, devices=1),
-                 lambda: idx.make_stream(mesh=1),
                  lambda: serve.main(["--n", "40", "--queries", "2", "--shards", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -110,7 +106,6 @@ def test_sharded_entry_points_refuse_a_short_mesh(monkeypatch, capsys):
     from repro_torch.core.scale_serve import scale_serve
     from repro_torch.core.sharded import ShardedIndex
     from repro_torch.launch import serve
-    from repro_torch.serving import ServingService
 
     serve.main(["--n", "40", "--queries", "2", "--shards", "1", "--device", "cpu"])
     out = capsys.readouterr().out
@@ -121,8 +116,6 @@ def test_sharded_entry_points_refuse_a_short_mesh(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for call in (lambda: ShardedIndex.build(g, n_landmarks=2, mesh=2),
                  lambda: QbSIndex.build(g, n_landmarks=2, sharded=4),
-                 lambda: scale_serve(g, idx.scheme, 2, [0], [5]),
-                 lambda: ServingService(idx, mesh=2),
-                 lambda: ServingService(idx, devices=3)):
+                 lambda: scale_serve(g, idx.scheme, 2, [0], [5])):
         with pytest.raises(ValueError, match="devices requested, 1 visible"):
             call()

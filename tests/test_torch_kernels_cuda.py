@@ -219,11 +219,10 @@ def test_uint16_tables_serve_on_the_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shards", [1, 3])
 def test_sharded_uint16_tables_serve_on_the_card(cuda_device, shards):
-    """The vertex-sharded index and the batch-sharded service on shards of
-    the one card, with uint16 tables (moved between shards as their int16
-    view): the answers equal the single-device index's on the CPU."""
+    """The vertex-sharded index on shards of the one card, with uint16
+    tables (moved between shards as their int16 view): the answers equal
+    the single-device index's on the CPU."""
     from repro_torch.core import Mesh, QbSIndex, build_labelling, grid_graph
-    from repro_torch.serving import ServingService
 
     us = np.array([0, 10, 150, 299, 42, 7, 3], np.int32)
     vs = np.array([299, 290, 150, 0, 257, 298, 5], np.int32)
@@ -237,12 +236,9 @@ def test_sharded_uint16_tables_serve_on_the_card(cuda_device, shards):
     mesh = Mesh([cuda_device] * shards)
     sh = QbSIndex.build(g, landmarks=lms, sharded=mesh, build_max_levels=400, **kw)
     assert sh.labels.labels_sh[0].dtype == torch.uint16
-    card = QbSIndex(g, build_labelling(g, lms, max_levels=400, device=cuda_device),
-                    **kw)
-    for got in (sh.query_batch_arrays(us, vs),
-                ServingService(card, mesh=mesh).query_arrays(us, vs)):
-        assert np.array_equal(got[0], want[0])
-        assert np.array_equal(got[1], want[1])
+    got = sh.query_batch_arrays(us, vs)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
 
 
 @pytest.mark.cuda

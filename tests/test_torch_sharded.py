@@ -1,6 +1,6 @@
 """Port vs reference: the vertex-sharded ``ShardedIndex`` (every lane from
-the born-sharded tables), ``scale_serve`` and the batch-sharded ``mesh=``
-service, on ``Mesh(["cpu"] * S)`` for S in {1, 2, 3, 4, 8}.
+the born-sharded tables, served directly and through ``StreamingService``)
+and ``scale_serve``, on ``Mesh(["cpu"] * S)`` for S in {1, 2, 3, 4, 8}.
 
 The oracle is the single-device index: the reference's
 ``repro.core.QbSIndex.query_batch_arrays`` / ``query_batch`` and the port's
@@ -11,8 +11,6 @@ cover the general, landmark-pair, one-sided and trivial lanes.  Every
 comparison is exact, with zero tolerance: distances are int32, SPGs
 boolean edge masks and edge-id arrays.
 """
-import warnings
-
 import numpy as np
 import pytest
 
@@ -31,7 +29,8 @@ from repro_torch.core.mesh import Mesh  # noqa: E402
 from repro_torch.core.qbs import _reverse_edge_map  # noqa: E402
 from repro_torch.core.scale_serve import scale_serve  # noqa: E402
 from repro_torch.core.sharded import ShardedIndex  # noqa: E402
-from repro_torch.serving import AdmissionPolicy, ServingService, StreamingService  # noqa: E402
+from repro_torch.core import sharded  # noqa: E402
+from repro_torch.serving import AdmissionPolicy, ManualClock  # noqa: E402
 
 PATH_EDGES = np.stack([np.arange(299), np.arange(1, 300)], axis=1)
 
@@ -146,15 +145,56 @@ def test_qbs_build_sharded_returns_sharded_index(reference):
                      device="cpu")
 
 
-def test_service_rejects_batch_sharding_a_sharded_index(reference):
+def test_service_refuses_to_install_a_sharded_index(reference):
     ref = reference["gnp"]
     sh = ShardedIndex.build(ref["gt"], landmarks=ref["lms"], mesh=Mesh(["cpu"]))
-    for kw in ({"devices": ["cpu"]}, {"mesh": Mesh(["cpu"] * 2)}):
-        with pytest.raises(ValueError, match="sharded index"):
-            sh.make_service(**kw)
     svc = _port_index(ref).make_service()
     with pytest.raises(ValueError, match="sharded index"):
         svc.install_index(sh)
+
+
+POLICIES = {"default": None, "2-16": AdmissionPolicy(min_chunk=2, max_chunk=16)}
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("s", SHARDS)
+def test_sharded_index_streams_bit_identical(reference, s, policy):
+    """``StreamingService`` over a ``ShardedIndex``: a lone query, then three,
+    then the rest, each drained, so the adaptive width walks down to the
+    policy's smallest and back up (powers of two: three shards divide none
+    of them, eight not the smallest); every answer equals the one-device
+    reference's."""
+    ref = reference["gnp"]
+    sh = ShardedIndex.build(ref["gt"], landmarks=ref["lms"], mesh=Mesh(["cpu"] * s),
+                            chunk=8)
+    st = sh.make_stream(policy=POLICIES[policy], clock=ManualClock())
+    futs = []
+    for a, b in ((0, 1), (1, 4), (4, len(ref["us"]))):
+        futs += st.submit_batch(ref["us"][a:b], ref["vs"][a:b])
+        st.drain()
+    _same_results([f.result() for f in futs], ref["res"])
+    widths = {e["chunk"] for e in st.admission_log}
+    assert min(widths) == st.policy.min_chunk and max(widths) > min(widths)
+    st.close()
+
+
+@pytest.mark.parametrize("s", SHARDS)
+def test_attach_plan_is_made_once_per_build(reference, monkeypatch, s):
+    """The shard record, and with it the attach's plan, is made when the
+    index is built; chunks of every lane read it and make none."""
+    ref = reference["gnp"]
+    plans, chunks = [], []
+    make_plan, lane = sharded.make_attach_plan, sharded.general_lane
+    monkeypatch.setattr(sharded, "make_attach_plan",
+                        lambda *a: plans.append(make_plan(*a)) or plans[-1])
+    monkeypatch.setattr(sharded, "general_lane",
+                        lambda rec, *a: chunks.append(rec) or lane(rec, *a))
+    sh = ShardedIndex.build(ref["gt"], landmarks=ref["lms"], mesh=Mesh(["cpu"] * s),
+                            chunk=8)
+    assert len(plans) == 1 and sh.record.attach_plan is plans[0]
+    _same_results(sh.query_batch(ref["us"], ref["vs"]), ref["res"])
+    assert len(chunks) >= 2 and all(rec is sh.record for rec in chunks)
+    assert len(plans) == 1
 
 
 @pytest.mark.parametrize("name", ["gnp", "grid"])
@@ -216,69 +256,3 @@ def test_scale_serve_matches_single_device(reference, name, s):
         assert int(dist[k]) == r.dist
         assert pairs[k] == r.edge_pairs(ref["gj"])
 
-
-# -- batch-sharded serving -----------------------------------------------------
-
-
-@pytest.mark.parametrize("s", SHARDS)
-@pytest.mark.parametrize("backend", sorted(BACKENDS))
-def test_mesh_service_matches_single_device(reference, backend, s):
-    ref = reference["gnp"]
-    idx = _port_index(ref, backend, chunk=8)
-    svc = ServingService(idx, mesh=Mesh(["cpu"] * s))
-    assert svc.chunk % s == 0 and svc._n_shards == s
-    d, m = svc.query_arrays(ref["us"], ref["vs"])
-    assert np.array_equal(d, ref["d"]) and np.array_equal(m, ref["m"])
-    _same_results(svc.query_batch(ref["us"], ref["vs"]), ref["res"])
-
-
-def test_mesh_service_devices_and_rounding(reference):
-    ref = reference["grid"]
-    idx = _port_index(ref, chunk=8)
-    with pytest.warns(UserWarning, match="rounding up to 9"):
-        svc = ServingService(idx, devices=["cpu"] * 3)
-    assert svc.chunk == 9 and svc._mesh.devices == [torch.device("cpu")] * 3
-    d, m = svc.query_arrays(ref["us"], ref["vs"])
-    assert np.array_equal(d, ref["d"]) and np.array_equal(m, ref["m"])
-    plan_chunks = [list(svc._chunks(_plan(idx, ref), chunk=c)) for c in (4, 5, 7)]
-    assert svc.stats["chunk_roundings"] == 3
-    widths = [{sel.shape[0] for sel, _, _ in c} for c in plan_chunks]
-    assert widths == [{6}, {6}, {9}]
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        ServingService(idx, mesh=Mesh(["cpu"] * 4))    # 8 divides: no warning
-
-
-def _plan(idx, ref):
-    from repro_torch.serving import plan_queries
-    return plan_queries(ref["us"], ref["vs"], idx._is_landmark_np)
-
-
-@pytest.mark.parametrize("s", [1, 3])
-def test_mesh_stream_bit_identical(reference, s):
-    """``StreamingService`` passes ``mesh=`` to its inner service; the
-    adaptive widths re-round to the shard multiple."""
-    ref = reference["gnp"]
-    idx = _port_index(ref, chunk=8)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        st = StreamingService(idx, mesh=Mesh(["cpu"] * s),
-                              policy=AdmissionPolicy(min_chunk=2, max_chunk=16))
-    assert st.service._n_shards == s
-    futs = st.submit_batch(ref["us"], ref["vs"])
-    st.drain()
-    _same_results([f.result() for f in futs], ref["res"])
-    st.close()
-
-
-def test_mesh_service_install_index_rebuilds_the_step(reference):
-    ref = reference["gnp"]
-    idx = _port_index(ref, chunk=8)
-    svc = ServingService(idx, mesh=Mesh(["cpu"] * 2))
-    old_step = svc._sharded_general
-    new = idx.apply_update(inserts=np.array([[1, 17], [2, 40]]))
-    svc.install_index(new)
-    assert svc._sharded_general is not old_step and svc.index is new
-    d, m = svc.query_arrays(ref["us"], ref["vs"])
-    d2, m2 = new.query_batch_arrays(ref["us"], ref["vs"])
-    assert np.array_equal(d, d2) and np.array_equal(m, m2)

@@ -71,7 +71,7 @@ def test_closure_cut_matters():
 @pytest.mark.parametrize("n_shards", [1, 2, 4])
 def test_in_edge_csr_covers_each_valid_slot_once(n_shards):
     idx = _index(n_shards, 16)
-    plan = idx._attach_plan
+    plan = idx.record.attach_plan
     v_loc = plan.v_loc
     for s in range(n_shards):
         dst = plan.dst[s].to(torch.int64)
@@ -97,7 +97,7 @@ def test_in_edge_csr_covers_each_valid_slot_once(n_shards):
 def test_word_exchange_counts_its_bytes(n_shards):
     mesh = Mesh(["cpu"] * n_shards)
     idx = _index(n_shards, 16)
-    halo = Halo(mesh, idx._src_sh, idx.labels.vstart, idx.labels.v_loc)
+    halo = Halo(mesh, idx.record.src_sh, idx.labels.vstart, idx.labels.v_loc)
     rng = np.random.default_rng(n_shards)
     tables = [torch.as_tensor(rng.integers(-2**31, 2**31, (64, 2, 6)), dtype=torch.int32)
               for _ in range(n_shards)]
@@ -223,8 +223,8 @@ def test_wrapper_refuses_host_and_strided_tensors():
 
 def test_plan_refuses_unsorted_destinations():
     idx = _index(2, 16)
-    dst = idx._dst_sh[0].flip(0).contiguous()
+    dst = idx.record.dst_sh[0].flip(0).contiguous()
     with pytest.raises(ValueError, match="sorted"):
-        sa.make_attach_plan([idx._src_sh[0]], [dst], idx.labels.vstart[:1],
+        sa.make_attach_plan([idx.record.src_sh[0]], [dst], idx.labels.vstart[:1],
                             idx.labels.v_loc, idx.labels.landmarks[:1],
                             idx.labels.n_vertices)
